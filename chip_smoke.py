@@ -103,6 +103,22 @@ def graph_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Host time of one call of `fn` (the wrapper's Python, its checks, the
+    tensor maps and the launch), the device left to run behind: wall clock
+    over `reps` calls that are only enqueued."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 def call_ms(fn, reps: int = 7):
     """Per-call time with the host in the loop (serving as a caller sees
     it): CUDA events around each call after 2 warm-up calls."""
@@ -151,7 +167,10 @@ def device_breakdown(fn, frames: int = 5, top: int = 12) -> dict:
             busy += end - max(start, edge)
             edge = end
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    convs = [v for name, v in by_name.items() if "conv3x3_" in name]
     return {"frames": frames,
+            "conv3x3_ms_per_frame": sum(t for t, _ in convs) / frames / 1e3,
+            "conv3x3_calls_per_frame": sum(n for _, n in convs) / frames,
             "wall_ms_per_frame": wall_us / frames / 1e3,
             "busy_ms_per_frame": busy / frames / 1e3,
             "idle_share": 1.0 - busy / wall_us,
@@ -196,21 +215,32 @@ def _conv_inputs(rng, h, w, ci, co, device):
             t(rng.random(co) + 0.5), t(rng.standard_normal(co) * 0.1))
 
 
-def _conv_case(rng, label, h, w, ci, co, stride, device):
+def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0):
+    """One conv shape; with `ci2` the two-input form (the refine convs): the
+    kernel reads x[..., :ci] and x[..., ci:] from two tensors, the plain and
+    library versions take the concat."""
     import torch
     import torch.nn.functional as F
-    from fasterseg_tpu_torch.kernels import conv3x3_bn_relu, conv3x3_bn_relu_plain
-    x, wt, scale, bias = _conv_inputs(rng, h, w, ci, co, device)
+    from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
+                                             conv3x3_bn_relu_plain,
+                                             split_weights)
+    x, wt, scale, bias = _conv_inputs(rng, h, w, ci + ci2, co, device)
+    halves = lambda t: ((t, None) if not ci2 else
+                        (t[..., :ci].contiguous(), t[..., ci:].contiguous()))
     # fp32: the JAX package's bars (tests/test_pallas_conv.py:33,66)
     tol = 1e-4 if stride == 1 else 2e-4
-    got = conv3x3_bn_relu(x, wt, scale, bias, stride=stride)
+    xa, x2 = halves(x)
+    got = conv3x3_bn_relu(xa, wt, scale, bias, stride=stride, x2=x2)
     want = conv3x3_bn_relu_plain(x, wt, scale, bias, stride=stride)
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     err32 = (got - want).abs().max().item()
     # bf16 against the fp32 plain version of the same bf16-rounded inputs:
-    # bf16 output rounding plus another order of summation
+    # bf16 output rounding plus another order of summation. The weights are
+    # split and packed once, as the runner does at construction.
     xb = x.bfloat16()
-    got = conv3x3_bn_relu(xb, wt, scale, bias, stride=stride)
+    xa, x2 = halves(xb)
+    cw = split_weights(wt, (ci, ci2) if ci2 else None)
+    got = conv3x3_bn_relu(xa, cw, scale, bias, stride=stride, x2=x2)
     want = conv3x3_bn_relu_plain(xb.float(), wt, scale, bias, stride=stride)
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
     err16 = (got.float() - want).abs().max().item()
@@ -226,19 +256,23 @@ def _conv_case(rng, label, h, w, ci, co, stride, device):
     def library():
         F.relu_(F.conv2d(x_lib, w_lib, b_lib, stride=stride, padding=1))
 
-    ms = graph_ms(lambda: conv3x3_bn_relu(xb, wt, scale, bias, stride=stride))
+    kernel = lambda: conv3x3_bn_relu(xa, cw, scale, bias, stride=stride, x2=x2)
+    ms = graph_ms(kernel)
     plain_ms = graph_ms(lambda: conv3x3_bn_relu_plain(xb, wt, scale, bias,
                                                       stride=stride))
     library_ms = graph_ms(library)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    # the weights as the kernel reads them: bf16 hi + lo, 4 bytes each
     nbytes = (xb.numel() * 2 + y.numel() * 2 + wt.numel() * 4 + 2 * co * 4)
-    ops = 2.0 * ho * wo * co * 9 * ci
-    # which of the two kernels of the .cu serves bf16 at this Ci
-    tensor_cores = ci % 16 == 0
-    return {"case": label, "shape": f"{h}x{w} {ci}->{co} s{stride}",
+    ops = 2.0 * ho * wo * co * 9 * (ci + ci2)
+    # which kernel of the .cu serves bf16 at these channel counts
+    tensor_cores = ci % 16 == 0 and ci2 % 16 == 0
+    cin = f"{ci}+{ci2}" if ci2 else f"{ci}"
+    return {"case": label, "shape": f"{h}x{w} {cin}->{co} s{stride}",
             "bf16_engine": "tensor cores" if tensor_cores else "cuda cores",
             "max_abs_err_fp32": err32, "max_abs_err": err16, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "host_us": host_us(kernel), "library_host_us": host_us(library),
             **bound(nbytes, ops,
                     "tensor_bf16" if tensor_cores else "cuda_fp32")}
 
@@ -286,16 +320,25 @@ def phase_kernels(seed: int) -> dict:
     rng = np.random.default_rng(seed)
     net = DerivedNet(student_plan())
     refine = net.refines32[1].conv[0]            # the concat 64+32 -> 64
+    arm_out = net.arms32[1].conv[0].out_channels  # its first input's channels
     H, W = HW
     s2 = [("stem stage0", H, W, 3, 32, 2),
-          ("stem stage1 entry", H // 2, W // 2, 32, 64, 2)]
+          ("stem stage1 entry", H // 2, W // 2, 32, 64, 2),
+          ("teacher stem stage0", H, W, 3, 48, 2)]
     s1 = [("stem stage1 conv2", H // 4, W // 4, 64, 64, 1),
           ("refine concat", H // 8, W // 8, refine.in_channels,
            refine.out_channels, 1),
-          ("teacher 1/32", H // 32, W // 32, 384, 384, 1)]
+          ("teacher 1/32", H // 32, W // 32, 384, 384, 1),
+          ("student 1/32 cell", H // 32, W // 32, 64, 64, 1),
+          ("teacher 1/32 cell", H // 32, W // 32, 192, 192, 1)]
     cases = {"conv3x3_bn_relu_s2": [_conv_case(rng, *c, device) for c in s2],
              "conv3x3_bn_relu_s1": [_conv_case(rng, *c, device) for c in s1],
              "upsample8_argmax": [_upsample_case(rng, device)]}
+    # the refine conv again, its concat read from two tensors (64 + 32)
+    cases["conv3x3_bn_relu_s1"].append(_conv_case(
+        rng, "refine, two inputs", H // 8, W // 8,
+        arm_out, refine.out_channels, 1, device,
+        ci2=refine.in_channels - arm_out))
     torch.cuda.synchronize()
     row = {"phase": "kernels", "cases": cases}
     emit(row)

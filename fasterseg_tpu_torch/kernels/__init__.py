@@ -5,7 +5,8 @@ version only for CPU tensors. Each counts its kernel launches.
 """
 
 from . import conv, fused
-from .conv import conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn
+from .conv import (ConvWeights, conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn,
+                   split_weights, unpack_weights)
 from .fused import upsample8_argmax, upsample8_argmax_plain
 
 

@@ -4,11 +4,17 @@ Counterpart of the JAX package's pallas/conv.py (`conv3x3_bn_relu_planar`
 and `conv3x3s2_bn_relu_s2d`). The port keeps NHWC activations and HWIO
 weights, the JAX package's public layouts; the planar, lane-padded and
 space-to-depth layouts of the Pallas kernels are not reproduced.
+
+The tensor-core kernel takes its weights split into bf16 hi + lo and packed
+in the layout of its B operand (`split_weights`), prepared once where the
+weights are folded.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,22 +27,136 @@ from . import build
 launches = {1: 0, 2: 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID_Y = 65535     # the CUDA-core kernel: one block row per output row
-_fn = None
+_MAX_GRID_Y = 65535     # the CUDA-core kernels: one block row per output row
+# split-K tile counters kept per device, zero between launches; launches
+# that split K must not overlap on two streams of one device
+_COUNTERS = 4096
+_fns = None
+_plans: Dict[tuple, Tuple[int, ...]] = {}
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+@dataclass(frozen=True)
+class ConvWeights:
+    """A 3x3 conv's weights as the kernels take them.
+
+    w: (3, 3, Ci, Co) HWIO float32, Ci the sum of `ci_parts`.
+    packed: bfloat16 (n blocks, chunks, 9 taps, 2, bn, ck): for each block of
+    `bn` output channels, chunk of `ck` input channels (each part of
+    `ci_parts` padded to whole chunks) and tap, the hi = bf16(w) and
+    lo = bf16(w - hi) slabs [output channel][input channel], their 16-byte
+    pieces swizzled as the tensor cores read them from shared memory."""
+    w: torch.Tensor
+    packed: torch.Tensor
+    ci_parts: Tuple[int, ...]
+    ck: int
+    bn: int
+
+    def to(self, device) -> "ConvWeights":
+        return ConvWeights(self.w.to(device).contiguous(),
+                           self.packed.to(device).contiguous(),
+                           self.ci_parts, self.ck, self.bn)
+
+
+def _tile(ci_parts: Sequence[int], co: int) -> Tuple[int, int]:
+    """(ck, bn): input channels per chunk and output channels per block."""
+    ck = 64 if all(c % 64 == 0 for c in ci_parts) else 32
+    return ck, (32 if co <= 32 else 64)
+
+
+def _swizzle_index(bn: int, ck: int) -> torch.Tensor:
+    """For row n (ck bf16 = ck/8 pieces of 16 bytes) the piece that lands
+    in slot j: the 128-byte (ck = 64) or 64-byte (ck = 32) shared-memory
+    swizzle, byte address bits [4, 7) ^= bits [7, 10) (masked to the row
+    width). An involution, so it also undoes itself."""
+    n = torch.arange(bn)[:, None]
+    j = torch.arange(ck // 8)[None, :]
+    off = n * ck * 2 + j * 16
+    mask = 7 if ck == 64 else 3
+    return (((off ^ (((off >> 7) & mask) << 4)) - n * ck * 2) // 16)
+
+
+def split_weights(w: torch.Tensor,
+                  ci_parts: Optional[Sequence[int]] = None) -> ConvWeights:
+    """HWIO float32 weights -> `ConvWeights`: hi = bf16(w), lo = bf16(w - hi)
+    (hi + lo keeps ~16 mantissa bits of w), packed for the tensor-core
+    kernel. `ci_parts` are the channel counts of the inputs the conv is
+    applied to (a concat read from several tensors); default one input."""
+    if w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.dtype != torch.float32:
+        raise ValueError(f"w must be (3, 3, Ci, Co) float32, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    ci, co = w.shape[2], w.shape[3]
+    ci_parts = (ci,) if ci_parts is None else tuple(int(c) for c in ci_parts)
+    if sum(ci_parts) != ci or any(c <= 0 for c in ci_parts):
+        raise ValueError(f"ci_parts {ci_parts} do not add up to Ci = {ci}")
+    ck, bn = _tile(ci_parts, co)
+    hi = w.bfloat16()
+    lo = (w - hi.float()).bfloat16()
+    both = torch.stack([hi, lo], dim=0).reshape(2, 9, ci, co)
+    # pad every part to whole chunks and the output channels to whole blocks
+    parts, start = [], 0
+    for c in ci_parts:
+        parts.append(F.pad(both[:, :, start:start + c],
+                           (0, -co % bn, 0, -c % ck)))
+        start += c
+    both = torch.cat(parts, dim=2)                   # (2, 9, chunks*ck, nb*bn)
+    nch, nb = both.shape[2] // ck, both.shape[3] // bn
+    both = both.reshape(2, 9, nch, ck, nb, bn).permute(4, 2, 1, 0, 5, 3)
+    pieces = both.reshape(nb, nch, 9, 2, bn, ck // 8, 8)
+    idx = _swizzle_index(bn, ck).to(w.device)
+    packed = pieces[..., torch.arange(bn, device=w.device)[:, None], idx, :]
+    return ConvWeights(w.contiguous(),
+                       packed.reshape(nb, nch, 9, 2, bn, ck).contiguous(),
+                       ci_parts, ck, bn)
+
+
+def unpack_weights(cw: ConvWeights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) as (3, 3, Ci, Co) float32 from `cw.packed`: the inverse of
+    the packing in `split_weights`."""
+    nb, nch, _, _, bn, ck = cw.packed.shape
+    pieces = cw.packed.reshape(nb, nch, 9, 2, bn, ck // 8, 8)
+    idx = _swizzle_index(bn, ck).to(cw.packed.device)
+    rows = torch.arange(bn, device=cw.packed.device)[:, None]
+    both = pieces[..., rows, idx, :].reshape(nb, nch, 9, 2, bn, ck)
+    both = both.permute(3, 2, 1, 5, 0, 4).reshape(2, 9, nch * ck, nb * bn)
+    co = cw.w.shape[3]
+    parts, start = [], 0
+    for c in cw.ci_parts:
+        parts.append(both[:, :, start:start + c, :co])
+        start += -(-c // ck) * ck
+    both = torch.cat(parts, dim=2).float()
+    return (both[0].reshape(3, 3, -1, co), both[1].reshape(3, 3, -1, co))
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("conv3x3_bn_relu").conv3x3_bn_relu
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    global _fns
+    if _fns is None:
+        lib = build.load("conv3x3_bn_relu")
+        run, plan = lib.conv3x3_bn_relu, lib.conv3x3_bn_relu_plan
+        run.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        run.restype = ctypes.c_int
+        plan.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+        _fns = (run, plan)
+    return _fns
 
 
-def _check(x, w, scale, bias, stride):
+def _plan(key: tuple) -> Tuple[int, ...]:
+    """(route, scratch floats, counters) of the conv `key` = (H, W, ci1,
+    ci2, co, stride, is_bf16, ck, bn), from the library's own tile choice;
+    route 2 is the tensor-core kernel."""
+    got = _plans.get(key)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        rc = _kernel()[1](*key, out)
+        if rc != 0:
+            raise RuntimeError(f"conv3x3_bn_relu: no kernel for {key}")
+        got = _plans[key] = tuple(out)
+    return got
+
+
+def _check(x, w, scale, bias, stride, x2):
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be one of {_DTYPES}, got {x.dtype}")
     if any(t.dtype != torch.float32 for t in (w, scale, bias)):
@@ -44,6 +164,13 @@ def _check(x, w, scale, bias, stride):
     if x.ndim != 4 or x.shape[0] != 1:
         raise ValueError(f"x must be (1, H, W, Ci), got {tuple(x.shape)}")
     ci = x.shape[3]
+    if x2 is not None:
+        if x2.dtype != x.dtype:
+            raise TypeError(f"x2 must have x's dtype {x.dtype}, got {x2.dtype}")
+        if x2.ndim != 4 or tuple(x2.shape[:3]) != tuple(x.shape[:3]):
+            raise ValueError(f"x2 must be (1, {x.shape[1]}, {x.shape[2]}, "
+                             f"Ci2), got {tuple(x2.shape)}")
+        ci += x2.shape[3]
     if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, ci):
         raise ValueError(f"w must be (3, 3, {ci}, Co), got {tuple(w.shape)}")
     co = w.shape[3]
@@ -52,15 +179,21 @@ def _check(x, w, scale, bias, stride):
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     devices = {t.device for t in (x, w, scale, bias)}
+    if x2 is not None:
+        devices.add(x2.device)
     if len(devices) != 1:
         raise ValueError(f"tensors lie on several devices: {devices}")
 
 
 def conv3x3_bn_relu_plain(x, w, scale, bias, stride: int = 1,
-                          relu: bool = True) -> torch.Tensor:
+                          relu: bool = True, x2=None) -> torch.Tensor:
     """Plain version (same math): fp32 conv of the given values, fp32
-    epilogue, rounded once to x's dtype. NHWC in and out."""
-    y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+    epilogue, rounded once to x's dtype. NHWC in and out. With `x2` the
+    conv runs over the channel concat of x and x2."""
+    if isinstance(w, ConvWeights):
+        w = w.w
+    xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+    y = F.conv2d(xin.permute(0, 3, 1, 2).float(),
                  w.permute(3, 2, 0, 1).float(), stride=stride, padding=1)
     y = y.permute(0, 2, 3, 1) * scale + bias
     if relu:
@@ -68,34 +201,81 @@ def conv3x3_bn_relu_plain(x, w, scale, bias, stride: int = 1,
     return y.to(x.dtype).contiguous()
 
 
-def conv3x3_bn_relu(x, w, scale, bias, stride: int = 1,
-                    relu: bool = True) -> torch.Tensor:
+def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
+                    stride: int = 1, relu: bool = True,
+                    x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (1, H, W, Ci) NHWC, float32 or bfloat16; w: (3, 3, Ci, Co) HWIO
-    float32; scale/bias: (Co,) float32 folded BN. Returns (1, Ho, Wo, Co)
-    in x's dtype, pad 1, accumulated in fp32 and rounded once.
+    float32, or the `ConvWeights` that `split_weights` made of it;
+    scale/bias: (Co,) float32 folded BN. Returns (1, Ho, Wo, Co) in x's
+    dtype, pad 1, accumulated in fp32 and rounded once.
 
-    A CUDA tensor runs the kernel (on tensor cores for bf16 with
-    Ci % 16 == 0, on CUDA cores otherwise); a CPU tensor runs the plain
-    version."""
-    _check(x, w, scale, bias, stride)
+    With `x2` (1, H, W, Ci2), same dtype and device, the conv runs over the
+    channel concat [x, x2] (w has Ci + Ci2 input channels) at stride 1. The
+    tensor-core kernel reads the two tensors in place where both channel
+    counts are multiples of 16 and the activations bfloat16; for any other
+    count or dtype the wrapper concatenates them first.
+
+    A CUDA tensor runs a kernel: bfloat16 with channel counts that are
+    multiples of 16 on the tensor cores (float32 weights are split and
+    packed on the fly; pass `ConvWeights` to do that once), everything else
+    on CUDA cores. A CPU tensor runs the plain version."""
+    cw = w if isinstance(w, ConvWeights) else None
+    if cw is not None:
+        w = cw.w
+    _check(x, w, scale, bias, stride, x2)
+    if x2 is not None and stride != 1:
+        raise ValueError("a second input is taken at stride 1 only")
     if x.device.type == "cpu":
-        return conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu)
+        return conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, x2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    for name, t in (("x", x), ("w", w), ("scale", scale), ("bias", bias)):
+    bf16 = x.dtype == torch.bfloat16
+    if x2 is not None and not (bf16 and x.shape[3] % 16 == 0
+                               and x2.shape[3] % 16 == 0):
+        x, x2 = torch.cat([x, x2], dim=-1), None
+    _, H, W, ci1 = x.shape
+    ci2 = 0 if x2 is None else x2.shape[3]
+    parts = (ci1,) if x2 is None else (ci1, ci2)
+    tensor_cores = bf16 and all(c % 16 == 0 for c in parts)
+    if tensor_cores and (cw is None or cw.ci_parts != parts):
+        cw = split_weights(w, parts)
+    tensors = [("x", x), ("w", w), ("scale", scale), ("bias", bias)]
+    if x2 is not None:
+        tensors.append(("x2", x2))
+    if tensor_cores:
+        tensors.append(("packed weights", cw.packed))
+    for name, t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    _, H, W, ci = x.shape
     co = w.shape[3]
+    ck, bn = (cw.ck, cw.bn) if tensor_cores else (0, 0)
     ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    if ho > _MAX_GRID_Y:
-        raise ValueError(f"output height {ho} exceeds the kernel's grid "
-                         f"limit of {_MAX_GRID_Y} rows")
+    route, n_scratch, n_counters = _plan(
+        (H, W, ci1, ci2, co, stride, int(bf16), ck, bn))
+    if route != 2 and ho > _MAX_GRID_Y:
+        raise ValueError(f"output height {ho} exceeds the CUDA-core kernels' "
+                         f"grid limit of {_MAX_GRID_Y} rows")
+    scratch = counters = None
+    if n_scratch:
+        if n_counters > _COUNTERS:
+            raise ValueError(f"{n_counters} split-K tiles exceed the "
+                             f"{_COUNTERS} counters kept per device")
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+        counters = _counters.get(x.device)
+        if counters is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the split-K counters are allocated at the "
+                                   "first launch: run once before capturing")
+            counters = _counters[x.device] = torch.zeros(
+                _COUNTERS, dtype=torch.int32, device=x.device)
     y = torch.empty((1, ho, wo, co), dtype=x.dtype, device=x.device)
-    rc = _kernel()(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                   bias.data_ptr(), y.data_ptr(), H, W, ci, co, stride,
-                   int(relu), int(x.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(x.device).cuda_stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _kernel()[0](
+        x.data_ptr(), ptr(x2), w.data_ptr(),
+        cw.packed.data_ptr() if tensor_cores else None, scale.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), ptr(scratch), ptr(counters), H, W, ci1,
+        ci2, co, stride, int(relu), int(bf16), ck, bn,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3_bn_relu launch failed: CUDA error {rc}")
     launches[stride] += 1

@@ -11,38 +11,44 @@ fast_body.py:217-287), cell for cell:
   fp32 epilogue, as the JAX package leaves them to XLA einsums;
 * zoomed-cell and aggregation resizes are the constant-matrix contractions
   of ops/resize.py;
-* a refine conv over a channel concat concatenates its NHWC inputs first.
+* a refine conv over a channel concat hands its two NHWC inputs to the conv
+  kernel, which reads them in place (no concat is written).
 
-The weights are folded once by `fold_weights`, not per call.
+The weights are folded, and split and packed for the tensor-core conv kernel,
+once by `fold_weights`, not per call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.plan import NetworkPlan
-from ..kernels.conv import conv3x3_bn_relu
+from ..kernels.conv import ConvWeights, conv3x3_bn_relu, split_weights
 from ..ops.conv import BatchNorm, Conv
 from ..ops.primitives import FactorizedReduce
 from ..ops.resize import downsample_half, resize_bilinear
 from .derived import DerivedNet, cell_key
 
-# Weights stay fp32 whatever the activation dtype: they are a few hundred
-# KB, and the conv kernel keeps fp32-weight accuracy (its tensor-core path
-# splits each weight into bf16 hi + lo); rounding them to bf16 (as the JAX
-# package does for the MXU) would add error for nothing.
-# (w (3,3,Ci,Co) HWIO fp32, scale (Co,) fp32, bias (Co,) fp32)
-Folded3x3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# Weights keep fp32 accuracy whatever the activation dtype: they are a few
+# hundred KB, and the tensor-core conv kernel takes each weight as bf16
+# hi + lo, split once here (`split_weights`); rounding them to bf16 (as the
+# JAX package does for the MXU) would add error for nothing.
+# (ConvWeights of w (3,3,Ci,Co) HWIO fp32, scale (Co,) fp32, bias (Co,) fp32)
+Folded3x3 = Tuple[ConvWeights, torch.Tensor, torch.Tensor]
 # (w (Ci,Co) fp32, scale (Co,) or None, bias (Co,))
 Folded1x1 = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
 
 
-def fold3x3(conv: Conv, bn: BatchNorm) -> Folded3x3:
+def fold3x3(conv: Conv, bn: BatchNorm, first: Optional[int] = None) -> Folded3x3:
+    """`first`: channels of the first of two inputs, for a conv that is
+    applied to a concat (the rest belong to the second)."""
     w = conv.weight.detach().permute(2, 3, 1, 0).float().contiguous()
     scale, bias = bn.folded()
-    return w, scale.detach().contiguous(), bias.detach().contiguous()
+    parts = None if first is None else (first, w.shape[2] - first)
+    return (split_weights(w, parts), scale.detach().contiguous(),
+            bias.detach().contiguous())
 
 
 def _w1x1(conv: Conv) -> torch.Tensor:
@@ -83,11 +89,13 @@ def fold_weights(net: DerivedNet) -> Dict:
           "cls": fold1x1(net.heads8.conv_1x1, None)}
     if hasattr(net, "arms32"):
         fw["arms32"] = [fold1x1(m.conv[0], m.conv[1]) for m in net.arms32]
-        fw["refines32"] = [fold3x3(m.conv[0], m.conv[1])
-                           for m in net.refines32]
+        # a refine conv reads [the ARM's upsampled output, the branch's map]
+        fw["refines32"] = [fold3x3(m.conv[0], m.conv[1], arm[0].shape[1])
+                           for m, arm in zip(net.refines32, fw["arms32"])]
     if hasattr(net, "arms16"):
         fw["arms16"] = fold1x1(net.arms16.conv[0], net.arms16.conv[1])
-        fw["refines16"] = fold3x3(net.refines16.conv[0], net.refines16.conv[1])
+        fw["refines16"] = fold3x3(net.refines16.conv[0], net.refines16.conv[1],
+                                  fw["arms16"][0].shape[1])
     return fw
 
 
@@ -138,9 +146,10 @@ def _run_cell(op: int, x: torch.Tensor, p: Dict, stride: int) -> torch.Tensor:
     raise ValueError(f"unknown op {op}")
 
 
-def _refine_3x3(parts: List[torch.Tensor], p: Folded3x3) -> torch.Tensor:
-    """ConvNorm(kernel=3) over a channel concat."""
-    return conv3x3_bn_relu(torch.cat(parts, dim=-1), *p)
+def _refine_3x3(a: torch.Tensor, b: torch.Tensor, p: Folded3x3) -> torch.Tensor:
+    """ConvNorm(kernel=3) over the channel concat [a, b], which the conv
+    kernel reads from the two tensors."""
+    return conv3x3_bn_relu(a, *p, x2=b)
 
 
 def fast_body(plan: NetworkPlan, fw: Dict, stem: torch.Tensor) -> torch.Tensor:
@@ -169,14 +178,14 @@ def fast_body(plan: NetworkPlan, fw: Dict, stem: torch.Tensor) -> torch.Tensor:
             o16 = by_scale[16][b]
             out = _conv1x1(by_scale[32][b], fw["arms32"][0])
             out = resize_bilinear(out, (o16.shape[1], o16.shape[2]))
-            out = _refine_3x3([out, o16], fw["refines32"][0])
+            out = _refine_3x3(out, o16, fw["refines32"][0])
             out = _conv1x1(out, fw["arms32"][1])
             out = resize_bilinear(out, (o8.shape[1], o8.shape[2]))
-            pred8.append(_refine_3x3([out, o8], fw["refines32"][1]))
+            pred8.append(_refine_3x3(out, o8, fw["refines32"][1]))
         elif last == 1:
             out = _conv1x1(by_scale[16][b], fw["arms16"])
             out = resize_bilinear(out, (o8.shape[1], o8.shape[2]))
-            pred8.append(_refine_3x3([out, o8], fw["refines16"]))
+            pred8.append(_refine_3x3(out, o8, fw["refines16"]))
         else:
             pred8.append(o8)
 

@@ -14,7 +14,7 @@ from typing import Dict, Sequence, Union
 import torch
 
 from ..core.plan import NetworkPlan
-from ..kernels.conv import conv3x3_bn_relu
+from ..kernels.conv import ConvWeights, conv3x3_bn_relu
 from ..kernels.fused import upsample8_argmax, upsample8_argmax_plain
 from ..ops.conv import Conv
 from ..ops.resize import scale_by
@@ -102,6 +102,8 @@ class InferenceRunner:
 
 
 def _to(tree, device):
+    if isinstance(tree, ConvWeights):
+        return tree.to(device)
     if isinstance(tree, torch.Tensor):
         return tree.to(device).contiguous()
     if isinstance(tree, dict):

@@ -14,7 +14,7 @@ import torch
 from fasterseg_tpu_torch import kernels
 from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_plain,
-                                         upsample8_argmax,
+                                         split_weights, upsample8_argmax,
                                          upsample8_argmax_plain)
 
 pytestmark = pytest.mark.cuda
@@ -41,14 +41,22 @@ def _conv_args(gen, H, W, ci, co, device):
             t(gen.random(co) + 0.5), t(gen.standard_normal(co) * 0.1)]
 
 
-# Ci=3 (stem), Ci/Co not multiples of the 16-channel chunk or the 32-channel
-# block, odd sizes, teacher width 384, and a concat width (64+32); in bf16,
-# Ci % 16 == 0 runs the tensor-core kernel (a half chunk at Ci=48 and 16,
-# an odd Co and a row wider than its 128-pixel tile included)
+# Ci=3 (the stem kernel in bf16, at Co = 32 and 48, an odd width and one
+# wider than a block's 128 outputs), Ci/Co not multiples of the 16-channel
+# chunk or the 32-channel block, odd sizes, teacher widths 192 and 384, and a
+# concat width (64+32). In bf16, Ci % 16 == 0 runs the wgmma kernel: half
+# chunks (Ci = 48, 16), odd and padded Co (19, 48), maps that no tile
+# divides (17x33), the small maps whose K is split (16x32, 32x64), a map
+# large enough for resident weights and several tiles a block (136x260),
+# and both strides.
 @pytest.mark.parametrize("H,W,ci,co,stride", [
     (64, 128, 3, 32, 2), (32, 64, 64, 64, 1), (16, 32, 384, 384, 1),
     (32, 64, 48, 16, 2), (8, 24, 20, 40, 1), (17, 33, 96, 64, 1),
-    (17, 33, 32, 64, 2), (9, 300, 16, 19, 1)])
+    (17, 33, 32, 64, 2), (9, 300, 16, 19, 1), (16, 32, 256, 256, 1),
+    (32, 64, 384, 384, 1), (32, 64, 192, 192, 1), (17, 33, 48, 48, 1),
+    (17, 33, 192, 19, 1), (136, 260, 64, 64, 1), (136, 260, 32, 64, 2),
+    (136, 260, 32, 32, 1), (64, 128, 64, 64, 2), (37, 531, 3, 48, 2),
+    (64, 128, 3, 64, 2)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_conv_kernel_matches_plain(cuda_device, gen, H, W, ci, co, stride,
                                    relu):
@@ -70,6 +78,41 @@ def test_conv_kernel_matches_plain(cuda_device, gen, H, W, ci, co, stride,
                                  relu=relu)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# the refine convs' two-input form (stride 1): the student's 64+32 and
+# 128+64, the teacher's 96+96, a map no tile divides, and one whose K splits
+@pytest.mark.parametrize("H,W,c1,c2,co", [
+    (128, 256, 64, 32, 64), (64, 128, 128, 64, 128), (17, 33, 96, 96, 96),
+    (16, 32, 192, 192, 192)])
+def test_conv_kernel_two_inputs(cuda_device, gen, H, W, c1, c2, co):
+    x, w, s, b = _conv_args(gen, H, W, c1 + c2, co, cuda_device)
+    xb = x.bfloat16()
+    a, c = xb[..., :c1].contiguous(), xb[..., c1:].contiguous()
+    before = kernels.launch_counts()["conv3x3_bn_relu_s1"]
+    got = conv3x3_bn_relu(a, split_weights(w, (c1, c2)), s, b, x2=c)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv3x3_bn_relu_s1"] == before + 1
+    # the same kernel on the concat (its chunks may be cut elsewhere, so
+    # the sums may differ by an output rounding: one bf16 ulp is 2^-8)
+    torch.testing.assert_close(got.float(), conv3x3_bn_relu(xb, w, s, b).float(),
+                               rtol=8e-3, atol=8e-3)
+    want = conv3x3_bn_relu_plain(a.float(), w, s, b, x2=c.float())
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    # fp32 activations: the wrapper concatenates for the CUDA-core kernel
+    got32 = conv3x3_bn_relu(x[..., :c1].contiguous(), w, s, b,
+                            x2=x[..., c1:].contiguous())
+    torch.testing.assert_close(got32, conv3x3_bn_relu_plain(x, w, s, b),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_conv_kernel_repeats_bit_for_bit(cuda_device, gen):
+    """A split K adds its partial sums in a fixed order."""
+    x, w, s, b = _conv_args(gen, 16, 32, 256, 256, cuda_device)
+    xb, cw = x.bfloat16(), split_weights(w)
+    first = conv3x3_bn_relu(xb, cw, s, b)
+    for _ in range(5):
+        assert torch.equal(conv3x3_bn_relu(xb, cw, s, b), first)
 
 
 def test_upsample_kernel_matches_plain(cuda_device, gen):

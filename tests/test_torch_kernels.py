@@ -12,10 +12,13 @@ from fasterseg_tpu.pallas.conv import (conv3x3_bn_relu_planar,
                                        conv3x3s2_bn_relu_s2d, fold_bn,
                                        nhwc_to_planar, planar_to_nhwc,
                                        space_to_depth_planar)
+from fasterseg_tpu.models.fast_body import _w3_concat
+from fasterseg_tpu.pallas.conv import conv3x3_bn_relu_reference
 from fasterseg_tpu.pallas.fused import upsample8_argmax as j_upsample8_argmax
 from fasterseg_tpu_torch import kernels
 from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_plain,
+                                         split_weights, unpack_weights,
                                          upsample8_argmax,
                                          upsample8_argmax_plain)
 
@@ -124,6 +127,121 @@ def test_conv_wrapper_rejects_bad_input(rng, bad):
         kwargs["stride"] = 3
     with pytest.raises((TypeError, ValueError)):
         conv3x3_bn_relu(x, w, s, b, **kwargs)
+
+
+# one input and two; chunks of 64 and of 32 channels, parts that are not
+# whole chunks (48, 16), blocks of 32 and 64 output channels, padded (19, 48)
+# and several (96, 192) blocks
+@pytest.mark.parametrize("ci_parts,co", [
+    ((64,), 64), ((32,), 32), ((48,), 19), ((16,), 48), ((64, 32), 64),
+    ((128, 64), 96), ((96, 96), 192), ((3,), 32)])
+def test_split_weights_round_trip(rng, ci_parts, co):
+    w = torch.from_numpy(rng.standard_normal(
+        (3, 3, sum(ci_parts), co)).astype(np.float32))
+    cw = split_weights(w, ci_parts if len(ci_parts) > 1 else None)
+    assert cw.ci_parts == ci_parts and cw.packed.dtype == torch.bfloat16
+    assert cw.ck == (64 if all(c % 64 == 0 for c in ci_parts) else 32)
+    assert cw.bn == (32 if co <= 32 else 64)
+    chunks = sum(-(-c // cw.ck) for c in ci_parts)
+    assert tuple(cw.packed.shape) == (-(-co // cw.bn), chunks, 9, 2, cw.bn,
+                                      cw.ck)
+    hi, lo = unpack_weights(cw)
+    # the packed layout round-trips to HWIO, bit for bit
+    assert torch.equal(hi, w.bfloat16().float())
+    assert torch.equal(lo, (w - w.bfloat16().float()).bfloat16().float())
+    # hi + lo keeps w to 2^-15 relative (two bf16 mantissas)
+    assert ((hi + lo - w).abs() <= w.abs() * 2.0 ** -15).all()
+    assert torch.equal(cw.w, w)
+
+
+def test_split_weights_layout_is_the_swizzled_operand(rng):
+    """Element (n, k) of a (tap, chunk) slab lies where the tensor cores'
+    128-byte (ck = 64) or 64-byte (ck = 32) swizzle puts it: byte offset
+    n * ck * 2 + k * 2 with address bits [4, 7) ^= bits [7, 10)."""
+    for ci, mask in ((64, 7), (32, 3)):
+        w = torch.from_numpy(rng.standard_normal((3, 3, ci, 64))
+                             .astype(np.float32))
+        cw = split_weights(w)
+        hi = w.bfloat16()
+        slab = cw.packed[0, 0, 5, 0].reshape(-1)     # tap (1, 2), hi
+        for n in (0, 1, 5, 9, 63):
+            for k in (0, 7, 8, 31, ci - 1):
+                off = n * ci * 2 + k * 2
+                off ^= ((off >> 7) & mask) << 4
+                assert slab[off // 2] == hi[1, 2, k, n], (ci, n, k)
+
+
+def test_split_weights_rejects_bad_input(rng):
+    w = torch.zeros((3, 3, 8, 4))
+    with pytest.raises(ValueError):
+        split_weights(w, (4, 3))
+    with pytest.raises(ValueError):
+        split_weights(w.bfloat16())
+    with pytest.raises(ValueError):
+        split_weights(w[0])
+
+
+@pytest.mark.parametrize("c1,c2,co,dtype", [
+    (24, 8, 16, torch.float32), (64, 32, 64, torch.float32),
+    (16, 16, 8, torch.bfloat16)])
+def test_conv_two_inputs_plain_equals_concat(rng, c1, c2, co, dtype):
+    x, w, s, b = _t(*_conv_inputs(rng, 12, 20, c1 + c2, co))
+    x = x.to(dtype)
+    a, c = x[..., :c1].contiguous(), x[..., c1:].contiguous()
+    want = conv3x3_bn_relu_plain(x, w, s, b)
+    assert torch.equal(conv3x3_bn_relu_plain(a, w, s, b, x2=c), want)
+    # the wrapper on CPU tensors, with plain and with prepared weights
+    assert torch.equal(conv3x3_bn_relu(a, w, s, b, x2=c), want)
+    assert torch.equal(conv3x3_bn_relu(a, split_weights(w, (c1, c2)), s, b,
+                                       x2=c), want)
+
+
+@pytest.mark.parametrize("c1,c2,co", [(24, 8, 16), (64, 32, 64)])
+def test_conv_two_inputs_matches_jax_refine(rng, c1, c2, co):
+    """The JAX package's refine conv never builds the concat either: it
+    concatenates the parts' padded planar blocks and scatters the weight's
+    input-channel segments to match (models/fast_body.py `_refine_3x3`)."""
+    x, w, s, b = _conv_inputs(rng, 16, 32, c1 + c2, co)
+    parts = [nhwc_to_planar(jnp.asarray(x[..., :c1])),
+             nhwc_to_planar(jnp.asarray(x[..., c1:]))]
+    cps = [p.shape[1] for p in parts]
+    wj = _w3_concat(jnp.asarray(w), cps, [c1, c2])
+    want = planar_to_nhwc(conv3x3_bn_relu_planar(
+        jnp.concatenate(parts, axis=1), wj, jnp.asarray(s), jnp.asarray(b)),
+        co)
+    xt, wt, st, bt = _t(x, w, s, b)
+    got = conv3x3_bn_relu(xt[..., :c1].contiguous(), wt, st, bt,
+                          x2=xt[..., c1:].contiguous())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    ref = conv3x3_bn_relu_reference(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(s), jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "device", "height", "width",
+                                 "rank", "channels", "stride"])
+def test_conv_wrapper_rejects_bad_second_input(rng, bad):
+    x, w, s, b = _t(*_conv_inputs(rng, 8, 8, 24, 8))
+    a, c = x[..., :16].contiguous(), x[..., 16:].contiguous()
+    kwargs = {}
+    if bad == "dtype":
+        c = c.bfloat16()
+    elif bad == "device":
+        c = c.to("meta")
+    elif bad == "height":
+        c = c[:, :4]
+    elif bad == "width":
+        c = c[:, :, :4]
+    elif bad == "rank":
+        c = c[0]
+    elif bad == "channels":
+        c = c[..., :4]       # w no longer matches 16 + 4 input channels
+    else:
+        kwargs["stride"] = 2
+    with pytest.raises((TypeError, ValueError)):
+        conv3x3_bn_relu(a, w, s, b, x2=c, **kwargs)
 
 
 @pytest.mark.parametrize("p8", [torch.zeros((1, 4, 4, 3), dtype=torch.int32),

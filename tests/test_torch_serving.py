@@ -100,3 +100,52 @@ def test_cpu_path_counts_no_launches():
     runner.logits(x)
     runner.classmap(x)
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_runner_passes_prepared_weights_and_two_part_refines(monkeypatch):
+    """Every 3x3 conv of the serving path gets the weights `fold_weights`
+    split and packed at construction, and the refine convs get their concat
+    as two tensors: `fast_body` concatenates only FactorizedReduce's halves
+    and FFM's branches."""
+    import types
+
+    import fasterseg_tpu_torch.models.fast_body as fast_body
+    import fasterseg_tpu_torch.models.infer as infer
+    from fasterseg_tpu_torch.kernels import ConvWeights
+    _, _, _, tplan, net, x = _both("student")
+    runner = InferenceRunner(tplan, net, dtype=torch.float32, device="cpu")
+    calls, cats, reduces = [], [], []
+    real_conv = fast_body.conv3x3_bn_relu
+    real_reduce = fast_body._factorized_reduce
+
+    def spy(x, w, scale, bias, stride=1, relu=True, x2=None):
+        calls.append((x, w, x2))
+        return real_conv(x, w, scale, bias, stride=stride, relu=relu, x2=x2)
+
+    class TorchSpy(types.ModuleType):
+        """`torch` as fast_body sees it, counting its own `cat` calls."""
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def cat(tensors, dim=0):
+            cats.append(len(tensors))
+            return torch.cat(tensors, dim=dim)
+
+    monkeypatch.setattr(fast_body, "conv3x3_bn_relu", spy)
+    monkeypatch.setattr(infer, "conv3x3_bn_relu", spy)
+    monkeypatch.setattr(fast_body, "torch", TorchSpy("torch"))
+    monkeypatch.setattr(fast_body, "_factorized_reduce", lambda x, p: (
+        reduces.append(1), real_reduce(x, p))[1])
+    want = InferenceRunner(tplan, net, dtype=torch.float32, device="cpu",
+                           fast_stem_enabled=False).p8(torch.from_numpy(x))
+    got = runner.p8(torch.from_numpy(x))
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+    assert calls and all(isinstance(w, ConvWeights) for _, w, _ in calls)
+    two = [(xa, w, x2) for xa, w, x2 in calls if x2 is not None]
+    assert len(two) == 3            # lasts = [2, 1]: two refines and one
+    for xa, w, x2 in two:
+        assert w.ci_parts == (xa.shape[3], x2.shape[3])
+    assert all(len(w.ci_parts) == 1 for _, w, x2 in calls if x2 is None)
+    assert len(cats) == len(reduces) + 1       # + FFM's concat
