@@ -168,9 +168,14 @@ def device_breakdown(fn, frames: int = 5, top: int = 12) -> dict:
             edge = end
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     convs = [v for name, v in by_name.items() if "conv3x3_" in name]
+    ups = [v for name, v in by_name.items() if "upsample_argmax_" in name]
     return {"frames": frames,
             "conv3x3_ms_per_frame": sum(t for t, _ in convs) / frames / 1e3,
             "conv3x3_calls_per_frame": sum(n for _, n in convs) / frames,
+            "upsample_argmax_ms_per_frame":
+                sum(t for t, _ in ups) / frames / 1e3,
+            "upsample_argmax_calls_per_frame":
+                sum(n for _, n in ups) / frames,
             "wall_ms_per_frame": wall_us / frames / 1e3,
             "busy_ms_per_frame": busy / frames / 1e3,
             "idle_share": 1.0 - busy / wall_us,
@@ -277,39 +282,101 @@ def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0):
                     "tensor_bf16" if tensor_cores else "cuda_fp32")}
 
 
-def _upsample_case(rng, device):
+# Shapes the tile kernel can get wrong, beside the serving head: an output no
+# tile and no group of four columns divides, one source row, one source
+# column, one channel, the most channels the tile kernel takes (24, padded to
+# 28), a small factor whose footprint still fits it (x5), and resizes that
+# the pixel kernel serves (x3, x2, a downsample, 32 and 256 channels).
+# (label, H8, W8, C, out_hw, dtype)
+UPSAMPLE_EDGES = [
+    ("serving head fp32", HW[0] // 8, HW[1] // 8, 19, None, "float32"),
+    ("ragged output", 16, 32, 19, (100, 250), "float32"),
+    ("ragged output bf16", 16, 32, 19, (100, 250), "bfloat16"),
+    ("one source row", 1, 32, 19, (5, 250), "float32"),
+    ("one source column", 16, 1, 19, (128, 7), "bfloat16"),
+    ("one channel", 16, 32, 1, None, "float32"),
+    ("24 channels", 16, 32, 24, None, "bfloat16"),
+    ("32 channels (pixel kernel)", 16, 32, 32, None, "bfloat16"),
+    ("x5", 16, 32, 19, (80, 160), "float32"),
+    ("x3 (pixel kernel)", 16, 32, 19, (48, 96), "float32"),
+    ("x2 (pixel kernel)", 16, 32, 19, (32, 64), "float32"),
+    ("downsample (pixel kernel)", 16, 32, 19, (8, 40), "bfloat16"),
+    ("256 channels (pixel kernel)", 16, 32, 256, None, "bfloat16"),
+]
+
+
+def _upsample_agreement(rng, device, h8, w8, c, out_hw, dtype, label):
+    """Kernel against plain version on the card: the same map, pixel for
+    pixel, on one-hot logits in fp32 and bf16 and on random logits of
+    `dtype` (both kernels round as the plain version's matrix resize does).
+    Returns the random logits, both maps and the agreement."""
     import torch
     from fasterseg_tpu_torch.kernels import upsample8_argmax, upsample8_argmax_plain
-    from fasterseg_tpu_torch.ops.resize import resize_bilinear
-    h8, w8, c = HW[0] // 8, HW[1] // 8, 19
-    # one-hot logits: exact agreement
     lbl = rng.integers(0, c, (1, h8, w8))
     onehot = torch.nn.functional.one_hot(torch.from_numpy(lbl), c)
     onehot = (onehot.float() * 10 - 5).to(device)
     for p8 in (onehot, onehot.bfloat16()):
-        check(torch.equal(upsample8_argmax(p8), upsample8_argmax_plain(p8)),
-              "upsample8_argmax: one-hot logits disagree")
-    # random logits: the Pallas kernel's bar (tests/test_pallas.py:17)
+        check(torch.equal(upsample8_argmax(p8, out_hw),
+                          upsample8_argmax_plain(p8, out_hw)),
+              f"upsample8_argmax, {label}: one-hot logits disagree")
     p8 = torch.from_numpy(rng.standard_normal((1, h8, w8, c))
-                          .astype("float32")).to(device).bfloat16()
-    got = upsample8_argmax(p8)
-    want = upsample8_argmax_plain(p8)
+                          .astype("float32")).to(device).to(dtype)
+    got = upsample8_argmax(p8, out_hw)
+    want = upsample8_argmax_plain(p8, out_hw)
+    check(got.shape == want.shape and got.dtype == torch.int32,
+          f"upsample8_argmax, {label}: {got.dtype} {tuple(got.shape)}")
     agree = (got == want).float().mean().item()
-    check(agree >= 0.995, f"upsample8_argmax: agreement {agree} < 0.995")
+    check(torch.equal(got, want),
+          f"upsample8_argmax, {label}: random logits agree on {agree} < 1")
+    return p8, got, want, agree
+
+
+def _upsample_case(rng, device):
+    import torch
+    from fasterseg_tpu_torch.kernels import upsample8_argmax, upsample8_argmax_plain
+    from fasterseg_tpu_torch.kernels.fused import _plan
+    from fasterseg_tpu_torch.ops.resize import resize_bilinear
+    h8, w8, c = HW[0] // 8, HW[1] // 8, 19
+    p8, got, want, agree = _upsample_agreement(
+        rng, device, h8, w8, c, None, torch.bfloat16, "serving head")
     # error of the chosen class, in logits: max over pixels of
     # logit[plain's class] - logit[kernel's class] (0 where they agree)
     full = resize_bilinear(p8.float(), HW)
     pick = lambda k: full.gather(-1, k.long()[..., None])[..., 0]
     err = (pick(want) - pick(got)).abs().max().item()
+    del full
 
     ms = graph_ms(lambda: upsample8_argmax(p8))
     plain_ms = graph_ms(lambda: upsample8_argmax_plain(p8))
+    p32 = p8.float()
+    ms_fp32 = graph_ms(lambda: upsample8_argmax(p32))
     nbytes = p8.numel() * 2 + HW[0] * HW[1] * 4
-    ops = HW[0] * HW[1] * c * 10.0       # 3 lerps (3 ops each) + a compare
+    # The function's least work shares the H pass among the pixels of a
+    # source column: one lerp (3 ops) and a compare a pixel-channel, plus one
+    # lerp for each (output row, source column, channel). The unshared form
+    # (3 lerps + a compare a pixel-channel) is kept beside it as
+    # bound_unshared_ms.
+    ops = HW[0] * HW[1] * c * 4.0 + HW[0] * w8 * c * 3.0
+    ops_unshared = HW[0] * HW[1] * c * 10.0
+
+    edges = []
+    for label, eh, ew, ec, out_hw, dtype in UPSAMPLE_EDGES:
+        _, g, _, a = _upsample_agreement(rng, device, eh, ew, ec, out_hw,
+                                         getattr(torch, dtype), label)
+        edges.append({"case": label, "shape": f"(1,{eh},{ew},{ec}) {dtype}",
+                      "out_hw": list(g.shape[1:]), "agree_random": a,
+                      "kernel": "tile" if _plan(eh, ew, ec, *g.shape[1:])[0]
+                      else "pixel"})
     return {"case": "serving head", "shape": f"(1,{h8},{w8},{c}) bf16",
             "agree_random": agree, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            **bound(nbytes, ops, "cuda_fp32")}
+            "ms_fp32": ms_fp32, "plain_ms": plain_ms, "library_ms": None,
+            **bound(nbytes, ops, "cuda_fp32"),
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ops_ms": ops / PEAK_OPS_PER_S["cuda_fp32"] * 1e3,
+            "bound_unshared_ms":
+                ops_unshared / PEAK_OPS_PER_S["cuda_fp32"] * 1e3,
+            "kernel": "tile" if _plan(h8, w8, c, *HW)[0] else "pixel",
+            "edges": edges}
 
 
 def phase_kernels(seed: int) -> dict:

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from fasterseg_tpu_torch import kernels
+from fasterseg_tpu_torch.kernels import fused
 from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_plain,
                                          split_weights, upsample8_argmax,
                                          upsample8_argmax_plain)
+from _torch_upsample_cases import UPSAMPLE_SHAPES, upsample_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -130,8 +132,73 @@ def test_upsample_kernel_matches_plain(cuda_device, gen):
     got = upsample8_argmax(p8, out_hw=(100, 250))
     want = upsample8_argmax_plain(p8, out_hw=(100, 250))
     assert tuple(got.shape) == (1, 100, 250) and got.dtype == torch.int32
-    # the Pallas kernel's bar (tests/test_pallas.py:17)
-    assert (got == want).float().mean().item() >= 0.995
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h8,w8,c,out_hw", UPSAMPLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_kernel_edge_shapes(cuda_device, gen, h8, w8, c, out_hw,
+                                     dtype):
+    """Both kernels round as the plain version does (H pass then W pass,
+    fma(t, b, rn((1 - t) * a))), so they return its map pixel for pixel, on
+    random logits as on one-hot ones."""
+    onehot, rand = (torch.from_numpy(a).to(cuda_device).to(dtype)
+                    for a in upsample_inputs(gen, h8, w8, c))
+    before = kernels.launch_counts()["upsample8_argmax"]
+    got = upsample8_argmax(onehot, out_hw)
+    want = upsample8_argmax_plain(onehot, out_hw)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    got = upsample8_argmax(rand, out_hw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["upsample8_argmax"] == before + 2
+    assert torch.equal(got, upsample8_argmax_plain(rand, out_hw))
+
+
+@pytest.mark.parametrize("c", [1, 19, 23, 24])
+def test_upsample_tile_kernel_every_channel_wins(cuda_device, c):
+    """Logits that rise with the channel: every channel sets a new maximum,
+    so the tile kernel's index sum holds all of its c powers of two."""
+    assert fused._plan(16, 32, c, 128, 256)[0] > 0
+    p8 = torch.arange(c, dtype=torch.float32, device=cuda_device) \
+        .expand(1, 16, 32, c).contiguous()
+    got = upsample8_argmax(p8)
+    assert torch.equal(got, upsample8_argmax_plain(p8))
+    assert bool((got == c - 1).all())
+
+
+@pytest.mark.parametrize("h8,w8,c,out_hw", [
+    s for s in UPSAMPLE_SHAPES if fused._plan(*s[:3], *(
+        s[3] or (8 * s[0], 8 * s[1])))[0]])
+def test_upsample_tile_kernel_equals_pixel_kernel(cuda_device, gen,
+                                                  monkeypatch, h8, w8, c,
+                                                  out_hw):
+    """The two kernels of the source round alike: the same map, bit for
+    bit, whichever the host's plan takes."""
+    _, rand = upsample_inputs(gen, h8, w8, c)
+    p8 = torch.from_numpy(rand).to(cuda_device).bfloat16()
+    tiled = upsample8_argmax(p8, out_hw)
+    monkeypatch.setattr(fused, "_plan", lambda *shape: (0, 0, 0))
+    assert torch.equal(upsample8_argmax(p8, out_hw), tiled)
+
+
+def test_upsample_graph_replay_repeats_bit_for_bit(cuda_device, gen):
+    _, rand = upsample_inputs(gen, 32, 64, 19)
+    p8 = torch.from_numpy(rand).to(cuda_device).bfloat16()
+    want = upsample8_argmax(p8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        upsample8_argmax(p8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = upsample8_argmax(p8)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_runner_kernels_match_plain_on_card(cuda_device):

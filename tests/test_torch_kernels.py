@@ -15,12 +15,15 @@ from fasterseg_tpu.pallas.conv import (conv3x3_bn_relu_planar,
 from fasterseg_tpu.models.fast_body import _w3_concat
 from fasterseg_tpu.pallas.conv import conv3x3_bn_relu_reference
 from fasterseg_tpu.pallas.fused import upsample8_argmax as j_upsample8_argmax
+from fasterseg_tpu.pallas.fused import upsample8_argmax_xla
 from fasterseg_tpu_torch import kernels
 from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_plain,
                                          split_weights, unpack_weights,
                                          upsample8_argmax,
                                          upsample8_argmax_plain)
+from fasterseg_tpu_torch.kernels import fused
+from _torch_upsample_cases import UPSAMPLE_SHAPES, upsample_inputs
 
 
 def _conv_inputs(rng, H, W, ci, co):
@@ -95,6 +98,61 @@ def test_upsample8_argmax_plain_onehot_exact(rng):
     want = np.asarray(j_upsample8_argmax(jnp.asarray(p8), tile_h=32))
     got = upsample8_argmax_plain(torch.from_numpy(p8))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h8,w8,c,out_hw", UPSAMPLE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample8_argmax_plain_matches_xla_contract(rng, h8, w8, c, out_hw,
+                                                     dtype):
+    """The plain version against the JAX package's contract
+    `upsample8_argmax_xla` (pallas/fused.py:101) over the shapes the CUDA
+    kernel is held to on the card: exact on one-hot logits, the Pallas
+    kernel's 99.5 % (tests/test_pallas.py:17) on random ones."""
+    for kind, p8 in zip(("onehot", "random"), upsample_inputs(rng, h8, w8, c)):
+        pt = torch.from_numpy(p8).to(getattr(torch, dtype))
+        pj = jnp.asarray(p8).astype(dtype)
+        want = np.asarray(upsample8_argmax_xla(pj, out_hw))
+        got = upsample8_argmax_plain(pt, out_hw).numpy()
+        assert got.dtype == np.int32 and got.shape == want.shape
+        if kind == "onehot":
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert (got == want).mean() >= 0.995
+
+
+@pytest.mark.parametrize("h8,w8,c,out_hw", UPSAMPLE_SHAPES + [
+    (128, 256, 19, None), (128, 256, 19, (1000, 2047))])
+def test_upsample_tile_plan_covers_every_tile(h8, w8, c, out_hw):
+    """The tile kernel's host-side plan: every tile's source rows and the
+    three source columns of every four-column group lie inside the
+    footprint, whose shared memory fits; else the pixel kernel is taken."""
+    H, W = out_hw or (8 * h8, 8 * w8)
+    fr, fc, cp = fused._plan(h8, w8, c, H, W)
+    th, tw = fused._TILE_H, fused._TILE_W
+    ylo, yhi, ty = fused._padded_coords(h8, H, th)
+    xlo, xhi, tx = fused._padded_coords(w8, W, tw)
+    assert len(ylo) % th == 0 and len(xlo) % tw == 0
+    # the padding repeats the last entry of ops.resize._ac_coords
+    from fasterseg_tpu_torch.ops.resize import _ac_coords
+    for padded, plain in zip((xlo, xhi, tx), _ac_coords(w8, W)):
+        np.testing.assert_array_equal(padded[:W], plain)
+        assert (padded[W:] == plain[-1]).all()
+    if fr == 0:
+        # the pixel kernel: small factors, downsamples, more than 24 channels
+        assert max((h8 - 1) / max(H - 1, 1), (w8 - 1) / max(W - 1, 1)) > 0.3 \
+            or c > 24
+        return
+    assert c <= 24 and cp >= c and cp % 8 == 4
+    assert ((fr + fused._WARPS) * fc * cp + 3 * th) * 4 <= 48 * 1024
+    for r0 in range(0, len(ylo), th):
+        rows = slice(r0, r0 + th)
+        assert ylo[rows].min() == ylo[r0] and yhi[rows].max() - ylo[r0] < fr
+    for c0 in range(0, len(xlo), tw):
+        for g in range(c0, c0 + tw, 4):
+            group = xlo[g:g + 4] - xlo[g]
+            assert set(group.tolist()) <= {0, 1}
+            assert xhi[g + 3] <= xlo[g] + 2      # three columns reach the pair
+            assert 0 <= xlo[g] - xlo[c0] and xlo[g] - xlo[c0] + 2 < fc
 
 
 def test_upsample8_argmax_out_hw_and_first_max():
