@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of fasterseg_tpu_torch on one NVIDIA card: build the kernels,
-hold each against its plain version, and serve the shipped student and
-teacher at 1024x2048 through the kernels.
+hold each against its plain version, serve the shipped student and teacher
+at 1024x2048 through the kernels, and evaluate the student on ProcCity
+scenes through them.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --agreement-seeds 0,1,2,3,4
@@ -25,6 +26,17 @@ Run from the root of a checkout. Phases, one JSON line each:
                  counter rose, class-map agreement with the plain fp32 path,
                  ms/frame, launch by launch and replayed as a CUDA graph
   serve_teacher  one teacher .classmap with the same agreement checks
+  eval_student   fasterseg_tpu_torch.eval.Evaluator over four 1024x2048
+                 ProcCity scenes (data/procgen.py, seeded) with the student's
+                 kernel path (bf16 K16, fp32 K32) and plain path (P32, TF32
+                 off; P16) as the forward: every conv kernel counter rose in
+                 the K16 run, hist distances between the runs and K32's
+                 class maps against P32's within the bars, an exact hist on
+                 the card; the conv kernels against their plain versions at
+                 the shapes of the multi-scale (0.75, 1.25) and sliding
+                 (1024 crop) inputs, and K32 against P32 there (1/8 logits,
+                 class maps of multi-scale + flip and of sliding); mIoU,
+                 ms per image
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -56,6 +68,14 @@ AGREE_FP32 = 0.998                 # kernel path in fp32 vs plain fp32
 # agreement with plain fp32, less this margin (readings over seeds 0-4 in
 # PERF.md, `--agreement-seeds`).
 NOISE_FLOOR_MARGIN = 0.0005
+EVAL_IMAGES = 4                    # ProcCity scenes of the eval phase
+# Share of pixels on which the fp32 kernel path's eval class maps may differ
+# from the plain fp32 path's, and the bar of d(A, B) = 1/2 |hist_A -
+# hist_B|_1 / labeled (a lower bound on the share of labeled pixels on which
+# two predictions differ) between their hists. PERF.md's readings: 1.2e-7
+# for fp32, 4.1e-4 for the bf16 kernel path; a bar between them fails a fp32
+# path that computes in bf16.
+EVAL_DIFF_FP32 = 1e-4
 
 
 def emit(obj) -> None:
@@ -220,10 +240,11 @@ def _conv_inputs(rng, h, w, ci, co, device):
             t(rng.random(co) + 0.5), t(rng.standard_normal(co) * 0.1))
 
 
-def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0):
+def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0, timed=True):
     """One conv shape; with `ci2` the two-input form (the refine convs): the
     kernel reads x[..., :ci] and x[..., ci:] from two tensors, the plain and
-    library versions take the concat."""
+    library versions take the concat. `timed=False` checks the kernel and
+    returns its errors only."""
     import torch
     import torch.nn.functional as F
     from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
@@ -250,6 +271,11 @@ def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0):
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
     err16 = (got.float() - want).abs().max().item()
     check(bool(torch.isfinite(got.float()).all()), f"{label}: non-finite")
+    cin = f"{ci}+{ci2}" if ci2 else f"{ci}"
+    row = {"case": label, "shape": f"{h}x{w} {cin}->{co} s{stride}",
+           "max_abs_err_fp32": err32, "max_abs_err": err16}
+    if not timed:
+        return row
 
     # timing in bf16, the serving dtype
     y = torch.empty_like(got)
@@ -272,10 +298,9 @@ def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0):
     ops = 2.0 * ho * wo * co * 9 * (ci + ci2)
     # which kernel of the .cu serves bf16 at these channel counts
     tensor_cores = ci % 16 == 0 and ci2 % 16 == 0
-    cin = f"{ci}+{ci2}" if ci2 else f"{ci}"
-    return {"case": label, "shape": f"{h}x{w} {cin}->{co} s{stride}",
+    return {**row,
             "bf16_engine": "tensor cores" if tensor_cores else "cuda cores",
-            "max_abs_err_fp32": err32, "max_abs_err": err16, "ms": ms,
+            "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "host_us": host_us(kernel), "library_host_us": host_us(library),
             **bound(nbytes, ops,
@@ -551,6 +576,203 @@ def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
     return row
 
 
+def _hist_d(a, b) -> float:
+    """1/2 |a - b|_1 / labeled of two confusion hists of the same labels."""
+    import numpy as np
+    return 0.5 * float(np.abs(a - b).sum()) / max(int(b.sum()), 1)
+
+
+def _diff(a, b) -> float:
+    """Share of pixels on which two class maps differ."""
+    return (a != b).float().mean().item()
+
+
+def _run_ms(ev, n_images: int) -> float:
+    """ms per image of `ev.run()`, host included: one warm-up image, then
+    the median of two runs over the dataset."""
+    ev.run(max_items=1)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ev.run()
+        times.append((time.perf_counter() - t0) * 1e3 / n_images)
+    return statistics.median(times)
+
+
+def phase_eval(seed: int) -> dict:
+    """Whole-image evaluation of the student through the kernels (K16, K32)
+    and through the plain network (P32 with TF32 off, the counterpart of
+    the JAX TrainSession.evaluate forward; P16, the bf16 noise floor)."""
+    import numpy as np
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.core import DataConfig
+    from fasterseg_tpu_torch.core.config import EvalConfig
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    from fasterseg_tpu_torch.data.preprocess import _resize, eval_preprocess
+    from fasterseg_tpu_torch.eval import (Evaluator, confusion_hist,
+                                          probabilities)
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            student_plan)
+    from fasterseg_tpu_torch.utils import init_random_
+    data = DataConfig()
+    H, W = HW
+    plan = student_plan()
+    n = plan.num_classes
+    net = init_random_(DerivedNet(plan), seed)
+    t0 = time.perf_counter()
+    scenes = ProcCity(length=EVAL_IMAGES, hw=HW, seed=seed, split="val")
+    ds = [scenes[i] for i in range(EVAL_IMAGES)]
+    render_s = time.perf_counter() - t0
+    labels = np.stack([s["label"] for s in ds])
+    n_valid = int(((labels != data.ignore_label) & (labels < n)).sum())
+    forwards = {"K16": (torch.bfloat16, True), "K32": (torch.float32, True),
+                "P32": (torch.float32, False), "P16": (torch.bfloat16, False)}
+
+    def runner(name):
+        dtype, fast = forwards[name]
+        return InferenceRunner(plan, net, dtype=dtype, device=DEVICE,
+                               fast_stem_enabled=fast)
+
+    def evaluator(fwd, dataset=ds, **kw):
+        return Evaluator(dataset, n, data.image_mean, data.image_std, fwd,
+                         ignore_label=data.ignore_label, device=DEVICE, **kw)
+
+    row = {"phase": "eval_student", "images": f"{EVAL_IMAGES}x{HW[0]}x{HW[1]}",
+           "dataset": "ProcCity", "render_s": render_s, "labeled": n_valid,
+           "label_classes": sorted(int(c) for c in np.unique(labels))}
+    hists, maps = {}, {}
+    for name in forwards:
+        r = runner(name)
+        ev = evaluator(r.logits)
+        if name == "K16":
+            # the main path: the counts are 0 just before and read just after
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            res = ev.run()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            for k in ("conv3x3_bn_relu_s1", "conv3x3_bn_relu_s2"):
+                check(launches[k] > 0, f"eval: kernel {k} was not launched")
+            row["launches"] = launches
+            # image 0: its hist on the card against numpy's on the host, and
+            # its time split into the forward alone and the fp32
+            # probabilities + argmax + hist on the forward's logits
+            x = torch.from_numpy(eval_preprocess(
+                ds[0]["data"], data.image_mean, data.image_std)[None]
+            ).to(DEVICE)
+            lab = torch.from_numpy(labels[:1].astype(np.int32)).to(DEVICE)
+            logits = r.logits(x)
+
+            def hist0():
+                pred = torch.argmax(probabilities(logits), -1).int()
+                return pred, confusion_hist(pred, lab, n, data.ignore_label)
+
+            pred, on_card = hist0()
+            p, l = pred.cpu().numpy().astype(np.int64), labels[:1].astype(
+                np.int64)
+            valid = (l != data.ignore_label) & (l < n)
+            on_host = np.bincount(n * l[valid] + p[valid],
+                                  minlength=n * n).reshape(n, n)
+            check(torch.equal(on_card.cpu(), torch.from_numpy(on_host)),
+                  "eval: the card's hist of image 0 differs from numpy's")
+            def upload():
+                # what run() sends the card an image: uint8 image, int32
+                # labels, from pageable host memory
+                return (torch.from_numpy(ds[0]["data"][None]).to(DEVICE),
+                        torch.from_numpy(labels[:1].astype(np.int32))
+                        .to(DEVICE))
+
+            row["k16_run_one_ms"] = call_ms(lambda: ev.run(max_items=1))
+            row["k16_upload_ms"] = call_ms(upload)
+            row["k16_forward_ms"] = call_ms(lambda: r.logits(x))
+            row["k16_probs_argmax_hist_ms"] = call_ms(hist0)
+            del logits, x, pred
+        else:
+            res = ev.run()
+        check(int(res.hist.sum()) == n_valid,
+              f"eval {name}: hist sums to {int(res.hist.sum())}, "
+              f"labeled {n_valid}")
+        hists[name] = res.hist
+        if name in ("K32", "P32"):
+            # the class maps of every image, to compare pixel by pixel
+            maps[name] = torch.cat([ev._predict_whole(s["data"][None])
+                                    for s in ds])
+        row[f"{name}_miou"] = res.mean_iu
+        row[f"{name}_pixel_acc"] = res.pixel_acc
+        if name in ("K16", "P16"):
+            row[f"{name}_ms_per_image"] = _run_ms(ev, EVAL_IMAGES)
+        del r, ev
+    row["d_K32_P32"] = _hist_d(hists["K32"], hists["P32"])
+    row["d_K16_P32"] = _hist_d(hists["K16"], hists["P32"])
+    row["d_P16_P32"] = _hist_d(hists["P16"], hists["P32"])
+    row["d_K16_P16"] = _hist_d(hists["K16"], hists["P16"])
+    row["diff_K32_P32"] = _diff(maps["K32"], maps["P32"])
+    del maps
+    for key in ("d_K32_P32", "diff_K32_P32"):
+        check(row[key] <= EVAL_DIFF_FP32,
+              f"eval: {key} = {row[key]} > {EVAL_DIFF_FP32}")
+    check(row["d_K16_P32"] <= row["d_P16_P32"] + NOISE_FLOOR_MARGIN,
+          f"eval: d(K16, P32) = {row['d_K16_P32']} > d(P16, P32) "
+          f"{row['d_P16_P32']} + {NOISE_FLOOR_MARGIN}")
+
+    # multi-scale + flip and sliding on image 0 run the convs at 768x1536,
+    # 1280x2560 and 1024x1024, which serving never sends: the kernels at
+    # those inputs' stem and 1/32 shapes against their plain versions, the
+    # fp32 kernel path's 1/8 logits of the scene against the plain path's,
+    # then both paths' class maps pixel by pixel
+    scales = (0.75, 1.0, 1.25)
+    crop = EvalConfig().eval_crop_size
+    img = ds[0]["data"]
+    inputs = {f"{int(H * s)}x{int(W * s)}":
+              _resize(img, (int(W * s), int(H * s)), nearest=False)
+              for s in scales if s != 1.0}
+    inputs[f"{crop}x{crop} crop"] = img[:crop, :crop]
+    rng = np.random.default_rng(seed)
+    k32, p32 = runner("K32"), runner("P32")
+    row["eval_shapes"] = []
+    for what, im in inputs.items():
+        h, w = im.shape[:2]
+        for label, hh, ww, ci, co, stride in (
+                ("stem stage0", h, w, 3, 32, 2),
+                ("stem stage1 entry", h // 2, w // 2, 32, 64, 2),
+                ("student 1/32 cell", h // 32, w // 32, 64, 64, 1)):
+            row["eval_shapes"].append(_conv_case(
+                rng, f"{label} of {what}", hh, ww, ci, co, stride,
+                torch.device(DEVICE), timed=False))
+        x = torch.from_numpy(eval_preprocess(
+            im, data.image_mean, data.image_std)[None]).to(DEVICE)
+        got, want = k32.p8(x).float(), p32.p8(x).float()
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+        row["eval_shapes"].append({
+            "case": f"p8 logits of {what}",
+            "max_abs_err_fp32": (got - want).abs().max().item(),
+            "max_abs_fp32": want.abs().max().item()})
+        del x, got, want
+
+    multi = dict(eval_scales=scales, eval_flip=True)
+    evs = {name: evaluator(r.logits, ds[:1], **multi)
+           for name, r in (("K32", k32), ("P32", p32))}
+    res = {name: ev.run() for name, ev in evs.items()}
+    row["d_multi_flip_K32_P32"] = _hist_d(res["K32"].hist, res["P32"].hist)
+    maps = {name: ev._predict_whole(img[None]) for name, ev in evs.items()}
+    row["diff_multi_flip_K32_P32"] = _diff(maps["K32"], maps["P32"])
+    row["K32_multi_flip_ms_per_image"] = _run_ms(evs["K32"], 1)
+    slid = {name: evaluator(r.logits).sliding_eval(img, crop)
+            for name, r in (("K32", k32), ("P32", p32))}
+    del k32, p32, evs, maps
+    check(slid["K32"].shape == HW and slid["K32"].dtype == np.int32,
+          f"eval: sliding class map {slid['K32'].dtype} {slid['K32'].shape}")
+    row["diff_sliding_K32_P32"] = float((slid["K32"] != slid["P32"]).mean())
+    for key in ("d_multi_flip_K32_P32", "diff_multi_flip_K32_P32",
+                "diff_sliding_K32_P32"):
+        check(row[key] <= EVAL_DIFF_FP32,
+              f"eval: {key} = {row[key]} > {EVAL_DIFF_FP32}")
+    row["gpu"] = gpu_line()
+    emit(row)
+    return row
+
+
 def phase_agreement_seeds(seeds) -> None:
     """Class-map agreement readings of student and teacher over seeds
     (weights and image), with the same bars as the serving phases."""
@@ -599,6 +821,7 @@ def main() -> int:
     phase_reference()
     student = _serve("student", student_plan, args.seed, timed=True)
     _serve("teacher", teacher_plan, args.seed, timed=False)
+    phase_eval(args.seed)
 
     from fasterseg_tpu_torch.kernels import build as kbuild
     sources = {"conv3x3_bn_relu_s1": "conv3x3_bn_relu",

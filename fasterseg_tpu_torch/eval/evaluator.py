@@ -1,0 +1,188 @@
+"""Whole-image / multi-scale / sliding segmentation evaluator.
+
+Counterpart of the JAX package's eval/evaluator.py (the reference's
+tools/engine/evaluator.py and its SegEvaluator subclasses). Protocol
+(whole_eval, evaluator.py:206-225 + val_func_process :297-318): normalize ->
+forward (full-resolution logits) -> probabilities exp(log_softmax) -> optional
+flip TTA (probabilities of the flipped image, flipped back, summed) ->
+optional multi-scale (probabilities resized back to full resolution with
+cv2's half-pixel sampling and summed) -> argmax (first maximum) -> confusion
+hist.
+
+At single scale the uint8 images and labels go to the device and only the
+counts come back. Multi-scale resizes each uint8 image on the host first, as
+the reference does. Sliding-window eval accumulates crop probabilities on the
+host. The forward is any callable on NHWC fp32 tensors on the evaluator's
+device, e.g. `models.InferenceRunner(...).logits` (the hand-written kernels)
+or a plain `DerivedNet`; the model holds its own weights.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..data.preprocess import _resize, eval_preprocess, pad_image_to_shape
+from ..models.infer import resolve_device
+from ..ops.resize import resize_bilinear_halfpixel
+from .metrics import compute_score, hist_stats
+
+
+@dataclasses.dataclass
+class EvalResult:
+    mean_iu: float
+    iou_per_class: np.ndarray
+    pixel_acc: float
+    hist: np.ndarray
+
+    def __str__(self):
+        return f"mIoU {self.mean_iu*100:.2f}% acc {self.pixel_acc*100:.2f}%"
+
+
+def probabilities(logits: torch.Tensor) -> torch.Tensor:
+    """exp(log_softmax) over the last axis in fp32: the probabilities the
+    reference's val_func_process takes (torch.exp of its log-softmax
+    output), rounded as the JAX protocol rounds them."""
+    return torch.exp(torch.log_softmax(logits.float(), -1))
+
+
+class Evaluator:
+    """forward_fn(images NHWC fp32 on `device`) -> logits (N, H, W, C) at
+    the input resolution. `device` defaults to CUDA and raises where there
+    is none; tests pass "cpu"."""
+
+    def __init__(self, dataset, num_classes: int, image_mean, image_std,
+                 forward_fn: Callable[[torch.Tensor], torch.Tensor],
+                 eval_scales: Sequence[float] = (1.0,),
+                 eval_flip: bool = False, batch_size: int = 1,
+                 ignore_label: int = 255,
+                 device: Union[str, torch.device] = "cuda"):
+        self.dataset = dataset
+        self.num_classes = num_classes
+        self.image_mean = image_mean
+        self.image_std = image_std
+        self.forward_fn = forward_fn
+        self.eval_scales = tuple(eval_scales)
+        self.eval_flip = eval_flip
+        self.batch_size = batch_size
+        self.ignore_label = ignore_label
+        self.device = resolve_device(device)
+        self._mean = torch.tensor(image_mean, dtype=torch.float32,
+                                  device=self.device)
+        self._std = torch.tensor(image_std, dtype=torch.float32,
+                                 device=self.device)
+
+    # ---- device programs ----
+
+    def _probs(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalized images -> summed probabilities, with the flip TTA
+        (val_func_process, evaluator.py:297-318)."""
+        p = probabilities(self.forward_fn(x))
+        if self.eval_flip:
+            lf = self.forward_fn(torch.flip(x, [2]))
+            p = p + torch.flip(probabilities(lf), [2])
+        return p
+
+    def _fused_eval(self, images_u8: torch.Tensor, labels: torch.Tensor):
+        """Single scale: uint8 images and labels on the device -> (hist,
+        labeled, correct), all computed there."""
+        x = images_u8.float() / 255.0
+        x = (x - self._mean) / self._std
+        pred = torch.argmax(self._probs(x), dim=-1).int()
+        return hist_stats(pred, labels, self.num_classes, self.ignore_label)
+
+    # ---- host protocol ----
+
+    @torch.inference_mode()
+    def _predict_whole(self, imgs: np.ndarray) -> torch.Tensor:
+        """Multi-scale whole-image prediction -> int32 class map (N, H, W)
+        on the device. Per scale: host resize of the uint8 images, then the
+        probabilities resized to full resolution on the device and summed;
+        one argmax at the end."""
+        H, W = imgs.shape[1], imgs.shape[2]
+        acc = None
+        for scale in self.eval_scales:
+            sh, sw = int(H * scale), int(W * scale)
+            batch = np.stack([
+                eval_preprocess(
+                    _resize(im, (sw, sh), nearest=False) if scale != 1.0 else im,
+                    self.image_mean, self.image_std)
+                for im in imgs])
+            p = self._probs(torch.from_numpy(batch).to(self.device))
+            if p.shape[1:3] != (H, W):
+                p = resize_bilinear_halfpixel(p, (H, W))
+            acc = p if acc is None else acc + p
+        return torch.argmax(acc, dim=-1).int()
+
+    @torch.inference_mode()
+    def run(self, max_items: Optional[int] = None) -> EvalResult:
+        """Whole-image eval over the dataset, `batch_size` images a forward;
+        the tail batch is padded with repeats whose labels are all
+        `ignore_label`, so they count nothing."""
+        n_total = min(len(self.dataset), max_items or len(self.dataset))
+        batch = self.batch_size
+        n = self.num_classes
+        hist = torch.zeros((n, n), dtype=torch.int64, device=self.device)
+        correct = torch.zeros((), dtype=torch.int64, device=self.device)
+        labeled = torch.zeros((), dtype=torch.int64, device=self.device)
+        # the reference default, a single scale, runs on the device from the
+        # uint8 images on; multi-scale resizes its inputs on the host
+        fused = self.eval_scales == (1.0,)
+        for i in range(0, n_total, batch):
+            idxs = list(range(i, min(i + batch, n_total)))
+            n_real = len(idxs)
+            idxs += [idxs[-1]] * (batch - n_real)
+            samples = [self.dataset[k] for k in idxs]
+            imgs = np.stack([s["data"] for s in samples])
+            labels = np.stack([s["label"] for s in samples]).astype(np.int32)
+            labels[n_real:] = self.ignore_label
+            lb = torch.from_numpy(labels).to(self.device)
+            if fused:
+                xb = torch.from_numpy(imgs.astype(np.uint8)).to(self.device)
+                h, l, c = self._fused_eval(xb, lb)
+            else:
+                h, l, c = hist_stats(self._predict_whole(imgs), lb,
+                                     self.num_classes, self.ignore_label)
+            hist += h
+            correct += c
+            labeled += l
+        hist = hist.cpu().numpy()
+        correct, labeled = int(correct), int(labeled)
+        iou, mean_iu, _, _ = compute_score(hist, correct, labeled)
+        return EvalResult(mean_iu=mean_iu, iou_per_class=np.asarray(iou),
+                          pixel_acc=correct / max(labeled, 1), hist=hist)
+
+    # ---- sliding-window protocol (evaluator.py:228-295) ----
+
+    @torch.inference_mode()
+    def sliding_eval(self, img: np.ndarray, crop_size: int,
+                     stride_rate: float = 5.0 / 6) -> np.ndarray:
+        """Crop-grid eval for images larger than the network input: the
+        image is centre-padded to at least one crop, crops step by
+        ceil(crop * stride_rate), and their probabilities are averaged on
+        the host. Returns the int32 class map (H, W)."""
+        H, W = img.shape[:2]
+        img_pad, margin = pad_image_to_shape(img, (max(H, crop_size),
+                                                   max(W, crop_size)), 0)
+        ph, pw = img_pad.shape[:2]
+        acc = np.zeros((ph, pw, self.num_classes), np.float32)
+        count = np.zeros((ph, pw, 1), np.float32)
+        stride = int(np.ceil(crop_size * stride_rate))
+        rows = int(np.ceil(max(ph - crop_size, 0) / stride)) + 1
+        cols = int(np.ceil(max(pw - crop_size, 0) / stride)) + 1
+        for r in range(rows):
+            for c in range(cols):
+                y = min(r * stride, ph - crop_size)
+                x = min(c * stride, pw - crop_size)
+                crop = img_pad[y:y + crop_size, x:x + crop_size]
+                batch = eval_preprocess(crop, self.image_mean,
+                                        self.image_std)[None]
+                p = self._probs(torch.from_numpy(batch).to(self.device))
+                acc[y:y + crop_size, x:x + crop_size] += p[0].cpu().numpy()
+                count[y:y + crop_size, x:x + crop_size] += 1
+        acc = acc[margin[0]:margin[0] + H, margin[2]:margin[2] + W]
+        count = count[margin[0]:margin[0] + H, margin[2]:margin[2] + W]
+        return np.argmax(acc / np.maximum(count, 1), -1).astype(np.int32)

@@ -1,4 +1,4 @@
-"""Align-corners bilinear resizes as constant-matrix contractions.
+"""Bilinear resizes as constant-matrix contractions, and nearest resizes.
 
 The reference network is stitched together with
 `F.interpolate(..., mode='bilinear', align_corners=True)`. The port does not
@@ -8,6 +8,9 @@ itself to (`tests/test_ops.py::test_downsample_half_matches_torch` fails on
 the torch side for this reason, not the JAX side). Each axis is instead a
 contraction with the (out, in) two-taps-per-row interpolation matrix built
 exactly as the JAX package builds it, so both packages apply the same weights.
+The eval protocol's half-pixel (cv2 `INTER_LINEAR`) resize is built the same
+way from its own matrix; the nearest resize is an `index_select` with torch's
+`mode='nearest'` index map.
 
 Layout: NHWC (the JAX package's layout), H and W are the 3rd- and
 2nd-to-last axes.
@@ -49,21 +52,40 @@ def _interp_matrix_np(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _hp_interp_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) half-pixel bilinear matrix, cv2.INTER_LINEAR semantics:
+    src = (i+0.5)*in/out - 0.5, edge-clamped 2-tap."""
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * (
+        in_size / out_size) - 0.5
+    lo = np.floor(src).astype(np.int64)
+    t = (src - lo).astype(np.float32)
+    lo_c = np.clip(lo, 0, in_size - 1)
+    hi_c = np.clip(lo + 1, 0, in_size - 1)
+    m = np.zeros((out_size, in_size), np.float32)
+    np.add.at(m, (np.arange(out_size), lo_c), 1.0 - t)
+    np.add.at(m, (np.arange(out_size), hi_c), t)
+    return m
+
+
+@functools.lru_cache(maxsize=None)
 def interp_matrix(in_size: int, out_size: int, dtype: torch.dtype,
-                  device: torch.device) -> torch.Tensor:
+                  device: torch.device, half_pixel: bool = False
+                  ) -> torch.Tensor:
     """The matrix on `device`, copied there once: a host-to-device copy on
     every resize would stall the host on the card's stream."""
-    return torch.from_numpy(_interp_matrix_np(in_size, out_size)).to(
+    build = _hp_interp_matrix_np if half_pixel else _interp_matrix_np
+    return torch.from_numpy(build(in_size, out_size)).to(
         device=device, dtype=dtype)
 
 
-def _interp_axis(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
-    """1-D align-corners interpolation along `axis` (a matrix product in
-    x's dtype, as the JAX package contracts in the compute dtype)."""
+def _interp_axis(x: torch.Tensor, out_size: int, axis: int,
+                 half_pixel: bool = False) -> torch.Tensor:
+    """1-D interpolation along `axis` (a matrix product in x's dtype, as the
+    JAX package contracts in the compute dtype)."""
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    m = interp_matrix(in_size, out_size, x.dtype, x.device)
+    m = interp_matrix(in_size, out_size, x.dtype, x.device, half_pixel)
     moved = torch.movedim(x, axis, -1)
     out = torch.matmul(moved, m.t())
     return torch.movedim(out, -1, axis).contiguous()
@@ -88,3 +110,38 @@ def downsample_half(x: torch.Tensor) -> torch.Tensor:
     the reference's 'zoomed conv'."""
     h_axis = x.ndim - 3
     return resize_bilinear(x, (x.shape[h_axis] // 2, x.shape[h_axis + 1] // 2))
+
+
+def resize_bilinear_halfpixel(x: torch.Tensor,
+                              out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2.INTER_LINEAR-equivalent resize of an NHWC (or HWC) tensor, H then
+    W: the eval protocol's resize of probability maps to full resolution."""
+    h_axis = x.ndim - 3
+    x = _interp_axis(x, out_hw[0], h_axis, half_pixel=True)
+    return _interp_axis(x, out_hw[1], h_axis + 1, half_pixel=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_coords(in_size: int, out_size: int) -> np.ndarray:
+    """PyTorch `mode='nearest'` index map: src = floor(i * in/out)."""
+    return np.minimum(
+        (np.arange(out_size, dtype=np.float64) * (in_size / out_size)
+         ).astype(np.int32), in_size - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_index(in_size: int, out_size: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_nearest_coords(in_size, out_size)).to(
+        device=device, dtype=torch.int64)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize (torch semantics) of an NHWC (or HWC)
+    tensor of any dtype, label maps included."""
+    h_axis = x.ndim - 3
+    x = torch.index_select(
+        x, h_axis, _nearest_index(x.shape[h_axis], out_hw[0], x.device))
+    return torch.index_select(
+        x, h_axis + 1,
+        _nearest_index(x.shape[h_axis + 1], out_hw[1], x.device))

@@ -246,3 +246,88 @@ def test_graph_replay_matches(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---- the eval slice on the card ----
+
+
+def test_confusion_hist_on_card_is_exact(cuda_device, gen):
+    """The card's histogram counts equal numpy's, ignore and out-of-range
+    labels dropped, at a full Cityscapes frame; counting reads nothing back
+    to the host."""
+    from fasterseg_tpu_torch.eval import confusion_hist
+    n = 19
+    pred = gen.integers(0, n, (1, 1024, 2048)).astype(np.int32)
+    label = gen.integers(0, n + 2, (1, 1024, 2048)).astype(np.uint8)
+    label[gen.random(label.shape) < 0.1] = 255
+    pred_d = torch.from_numpy(pred).to(cuda_device)
+    label_d = torch.from_numpy(label).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = confusion_hist(pred_d, label_d, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    valid = label < n
+    want = np.bincount(n * label[valid].astype(np.int64) + pred[valid],
+                       minlength=n * n).reshape(n, n)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((1, 96, 192, 19), (128, 256)),
+                                          ((1, 160, 320, 19), (128, 256)),
+                                          ((2, 37, 53, 5), (50, 41))])
+def test_resize_halfpixel_on_card_matches_cpu(cuda_device, gen, shape, out_hw):
+    from fasterseg_tpu_torch.ops.resize import resize_bilinear_halfpixel
+    x = torch.from_numpy(gen.random(shape).astype(np.float32))
+    want = resize_bilinear_halfpixel(x, out_hw)
+    got = resize_bilinear_halfpixel(x.to(cuda_device), out_hw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_resize_nearest_on_card_matches_cpu(cuda_device, gen):
+    from fasterseg_tpu_torch.ops.resize import resize_nearest
+    x = torch.from_numpy(gen.integers(0, 256, (2, 37, 53, 3)).astype(np.uint8))
+    for out_hw in ((50, 41), (128, 256), (12, 20)):
+        want = resize_nearest(x, out_hw)
+        assert torch.equal(resize_nearest(x.to(cuda_device), out_hw).cpu(),
+                           want)
+
+
+def test_evaluator_kernel_path_agrees_with_plain(cuda_device):
+    """Evaluator.run over two ProcCity scenes: the student's kernel path in
+    fp32 against its plain path, at single scale and with two scales and the
+    flip. d = 1/2 |hist_K - hist_P|_1 / labeled and the share of pixels on
+    which the class maps differ are at most 1e-4 (the bf16 kernel path reads
+    about 4e-4 at 1024x2048)."""
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    from fasterseg_tpu_torch.eval import Evaluator
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            student_plan)
+    from fasterseg_tpu_torch.utils import init_random_
+    plan = student_plan()
+    net = init_random_(DerivedNet(plan), 0)
+    ds = [ProcCity(length=2, hw=(256, 512), seed=0)[i] for i in range(2)]
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    for kw in ({}, {"eval_scales": (0.75, 1.0), "eval_flip": True}):
+        hists, maps = [], []
+        for fast in (True, False):
+            runner = InferenceRunner(plan, net, dtype=torch.float32,
+                                     device=cuda_device,
+                                     fast_stem_enabled=fast)
+            ev = Evaluator(ds, 19, mean, std, runner.logits,
+                           device=cuda_device, **kw)
+            kernels.reset_launch_counts()
+            hists.append(ev.run().hist)
+            launched = kernels.launch_counts()["conv3x3_bn_relu_s1"] > 0
+            assert launched == fast
+            # the kernel path takes batch 1: one image a prediction
+            maps.append(torch.cat([ev._predict_whole(s["data"][None])
+                                   for s in ds]))
+        labeled = hists[1].sum()
+        assert hists[0].sum() == labeled > 0
+        d = 0.5 * np.abs(hists[0] - hists[1]).sum() / labeled
+        assert d <= 1e-4, d
+        diff = (maps[0] != maps[1]).float().mean().item()
+        assert diff <= 1e-4, diff
