@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of fasterseg_tpu_torch on one NVIDIA card: build the kernels,
 hold each against its plain version, serve the shipped student and teacher
-at 1024x2048 through the kernels, and evaluate the student on ProcCity
-scenes through them.
+at 1024x2048 through the kernels, evaluate the student on ProcCity scenes
+through them, and train the teacher and then the student from it.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --agreement-seeds 0,1,2,3,4
@@ -37,6 +37,21 @@ Run from the root of a checkout. Phases, one JSON line each:
                  (1024 crop) inputs, and K32 against P32 there (1/8 logits,
                  class maps of multi-scale + flip and of sliding); mIoU,
                  ms per image
+  train_teacher  fasterseg_tpu_torch.train.TrainSession in teacher mode at
+                 the repo's TrainConfig (batch 12, 512x1024 crops of 12
+                 ProcCity scenes through TrainPre and TrainLoader): two steps
+                 with finite losses, the weights0_ckpt checkpoint written;
+                 ms per step, images/s, peak memory, loader ms per batch
+  train_student  student mode from that checkpoint (partial_load, 0
+                 missing): two epochs of two steps with finite loss and
+                 loss_kl > 0, every parameter and BN statistic moved, the
+                 staircase learning rate at the epoch boundary, the loss
+                 falling on one fixed batch; one step on the card against
+                 the same step on the CPU (batch 2, 256x512, float64 and
+                 fp32); exact resume under
+                 deterministic algorithms; TrainSession.evaluate over the
+                 eval scenes through the conv kernels against the plain fp32
+                 net; the same readings as train_teacher
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -45,12 +60,15 @@ host without CUDA. Needs no JAX.
 """
 
 import argparse
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "tests", "assets")
@@ -76,6 +94,15 @@ EVAL_IMAGES = 4                    # ProcCity scenes of the eval phase
 # for fp32, 4.1e-4 for the bf16 kernel path; a bar between them fails a fp32
 # path that computes in bf16.
 EVAL_DIFF_FP32 = 1e-4
+TRAIN_POOL = 12                    # ProcCity scenes the train phases crop
+TRAIN_NITERS = 2                   # steps an epoch in the train phases
+# Card against CPU, one student step: the same function, held in float64 on
+# both (every tensor within atol 1e-10 + rtol 1e-8), and the fp32 loss to
+# rtol 1e-4 (TF32 off). The fp32 tensors are read against atol 1e-5 + rtol
+# 1e-4 and reported, not held: with cuDNN's autotuned algorithms the card's
+# own fp32 rounding reached 3.7e-5 on a BN bias (PERF.md, training).
+CARD_CPU_F64_ATOL, CARD_CPU_F64_RTOL = 1e-10, 1e-8
+CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-4, 1e-5
 
 
 def emit(obj) -> None:
@@ -770,6 +797,341 @@ def phase_eval(seed: int) -> dict:
               f"eval: {key} = {row[key]} > {EVAL_DIFF_FP32}")
     row["gpu"] = gpu_line()
     emit(row)
+    return row, ds
+
+
+# ------------------------------------------------------------------ training
+
+
+def _train_config(mode: str, seed: int, hw=(512, 1024), batch: int = 12):
+    """The repo's TrainConfig for `mode` (lr 0.01, momentum 0.9, weight
+    decay 5e-4, x0.992 an epoch, OHEM 0.7 with min_kept = batch*h*w/16, aux
+    0.2) at batch `batch` and `hw` crops, TRAIN_NITERS steps an epoch."""
+    import dataclasses
+    from fasterseg_tpu_torch.core.config import (DataConfig,
+                                                 cityscapes_student_config,
+                                                 cityscapes_teacher_config)
+    make = (cityscapes_teacher_config if mode == "teacher"
+            else cityscapes_student_config)
+    return make(data=DataConfig(image_height=hw[0], image_width=hw[1],
+                                batch_size=batch),
+                niters_per_epoch=TRAIN_NITERS, seed=seed)
+
+
+def _train_pool(seed: int):
+    """TRAIN_POOL ProcCity train scenes at 1024x2048, rendered once (eight
+    threads) and held in memory: the train loader's dataset."""
+    from concurrent.futures import ThreadPoolExecutor
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    scenes = ProcCity(length=TRAIN_POOL, hw=HW, seed=seed, split="train")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        pool = list(ex.map(scenes.__getitem__, range(TRAIN_POOL)))
+    return pool, time.perf_counter() - t0
+
+
+def _loader(cfg, pool):
+    from fasterseg_tpu_torch.data import TrainLoader, TrainPre
+    d = cfg.data
+    pre = TrainPre(d.image_mean, d.image_std, (d.image_height, d.image_width),
+                   d.train_scale_array, d.gt_down_sampling, d.ignore_label)
+    return TrainLoader(pool, pre, d.batch_size, seed=cfg.seed)
+
+
+def _on_card(batch):
+    import torch
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in batch)
+
+
+def _step_readings(session, loader, x, y) -> dict:
+    """ms per train step (CUDA events around `session.step` on a batch
+    already on the card: 2 warm-ups, then the median of 5 with min/max),
+    images/s, peak memory over those steps, the loader's ms per batch
+    alone (host, median of 3) and the losses of all 7 steps."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = session.step(x, y)
+        end.record()
+        end.synchronize()
+        losses.append(m["loss"].item())
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    loader_ms = []
+    for step in range(3):
+        t0 = time.perf_counter()
+        loader.make_batch(99, step)
+        loader_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": {"median": ms, "min": min(times), "max": max(times),
+                        "reps": len(times)},
+            "images_per_s": x.shape[0] / ms * 1e3,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "loader_ms_per_batch": statistics.median(loader_ms),
+            "fixed_batch_losses": losses}
+
+
+def _finite_steps(stats, name, kl: bool):
+    import math
+    for loss, loss_kl in zip(stats["losses"], stats["losses_kl"]):
+        check(math.isfinite(loss), f"{name}: loss {loss}")
+        check(loss_kl > 0 if kl else loss_kl == 0,
+              f"{name}: loss_kl {loss_kl}")
+
+
+def phase_train_teacher(seed: int, pool, save_dir: str) -> dict:
+    """Teacher mode at batch 12, 512x1024: the main path is two steps
+    through TrainSession.train_epoch on the loader, then save()."""
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.train import TrainSession
+    t0 = time.perf_counter()
+    # as cli/train.py does: with cuDNN's heuristic choice of algorithm for
+    # fp32 convs without TF32 (FFT) a step took 6.5x longer (PERF.md)
+    torch.backends.cudnn.benchmark = True
+    cfg = _train_config("teacher", seed)
+    session = TrainSession(cfg, ASSETS, device=DEVICE)
+    loader = _loader(cfg, pool)
+    row = {"phase": "train_teacher", "batch": cfg.data.batch_size,
+           "crop": [cfg.data.image_height, cfg.data.image_width],
+           "min_kept": cfg.min_kept(),
+           "train_pre": ("native" if loader.preprocess.uses_native()
+                         else "numpy")}
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        stats = session.train_epoch(loader, 0, TRAIN_NITERS)
+        torch.cuda.synchronize()
+        # the step is autograd over the plain network: no kernel of the
+        # port has a backward, so none launches here
+        row["step_launches"] = kernels.launch_counts()
+        _finite_steps(stats, "train_teacher", kl=False)
+        session.save(save_dir)
+        row.update(losses=stats["losses"], train_mIoU=stats["train_mIoU"])
+        row.update(_step_readings(session, loader,
+                                  *_on_card(loader.make_batch(0, 0))))
+    finally:
+        loader.close()
+    row["seconds"] = time.perf_counter() - t0
+    row["gpu"] = gpu_line()
+    emit(row)
+    return row
+
+
+def _card_against_cpu(session, pool, seed: int) -> dict:
+    """One student step (batch 2, 256x512, full width) from the same
+    weights, momentum-free optimizer and batch, on the card and on the CPU,
+    in fp32 and in float64. Raises outside the bars of CARD_CPU_*; reports
+    how far each device's fp32 step is from its own float64 step."""
+    import torch
+    from fasterseg_tpu_torch.train import TrainState, make_optimizer, train_step
+    cfg = _train_config("student", seed, hw=(256, 512), batch=2)
+    loader = _loader(cfg, pool)
+    x, y = (torch.from_numpy(a) for a in loader.make_batch(0, 0))
+    c = cfg
+    kw = dict(session.step_kwargs, min_kept=c.min_kept())
+    states, losses = {}, {}
+    for name, device in (("card", DEVICE), ("cpu", "cpu")):
+        for dtype in (torch.float32, torch.float64):
+            net = copy.deepcopy(session.model).to(device=device, dtype=dtype)
+            teacher = copy.deepcopy(session.teacher).to(device=device,
+                                                        dtype=dtype)
+            state = TrainState(net, make_optimizer(
+                net.parameters(), c.lr, c.momentum, c.weight_decay,
+                c.lr_decay, c.niters_per_epoch))
+            m = train_step(state, x.to(device=device, dtype=dtype),
+                           y.to(device), teacher, **kw)
+            key = f"{name}{dtype.itemsize * 8}"
+            losses[key] = float(m["loss"])
+            states[key] = {k: v.detach().cpu().double()
+                           for k, v in net.state_dict().items()
+                           if v.is_floating_point()}
+            del net, teacher, state
+
+    def worst(a, b, atol, rtol):
+        """(largest abs difference, its tensor, largest share of the bar,
+        tensors over the bar) between two states."""
+        out = [0.0, "", 0.0, 0]
+        for k, w in states[b].items():
+            err = (states[a][k] - w).abs()
+            share = (err / (atol + rtol * w.abs())).max().item()
+            out[:2] = max(out[:2], [err.max().item(), k])
+            out[2] = max(out[2], share)
+            out[3] += share > 1
+        return out
+
+    rel = abs(losses["card32"] - losses["cpu32"]) / abs(losses["cpu32"])
+    check(rel <= CARD_CPU_RTOL, f"card vs CPU: loss {losses}")
+    f64 = worst("card64", "cpu64", CARD_CPU_F64_ATOL, CARD_CPU_F64_RTOL)
+    check(f64[3] == 0, f"card vs CPU in float64: {f64[1]} off by {f64[0]}")
+    f32 = worst("card32", "cpu32", CARD_CPU_ATOL, CARD_CPU_RTOL)
+    return {"shape": "2x256x512", "loss": losses, "loss_rel_err": rel,
+            "f64_max_abs_err": f64[0], "f64_max_abs_err_tensor": f64[1],
+            "max_abs_err": f32[0], "max_abs_err_tensor": f32[1],
+            "worst_share_of_fp32_bar": f32[2], "tensors_over_fp32_bar": f32[3],
+            "tensors": len(states["cpu32"]),
+            "card_fp32_vs_fp64_max_abs": worst("card32", "card64", 1, 0)[0],
+            "cpu_fp32_vs_fp64_max_abs": worst("cpu32", "cpu64", 1, 0)[0]}
+
+
+def _resume_check(seed: int, pool, teacher_ckpt: str) -> dict:
+    """2 epochs x 2 steps, save, restore into a new session, 2 more,
+    against 4 epochs unbroken, at batch 2 and 128x256 crops, under
+    torch.use_deterministic_algorithms (warnings of ops that have no
+    deterministic form are recorded, not raised): the state_dict and the
+    optimizer state must be equal bit for bit."""
+    import torch
+    from fasterseg_tpu_torch.train import TrainSession
+    cfg = _train_config("student", seed, hw=(128, 256), batch=2)
+
+    def run(epochs, save_dir=None, resume_dir=None):
+        session = TrainSession(cfg, ASSETS, device=DEVICE)
+        session.load_teacher_weights(teacher_ckpt)
+        start = session.restore(resume_dir) if resume_dir else 0
+        loader = _loader(cfg, pool)
+        try:
+            for epoch in range(start, epochs):
+                session.train_epoch(loader, epoch, TRAIN_NITERS)
+        finally:
+            loader.close()
+        if save_dir:
+            session.save(save_dir, epochs - 1)
+        return session, start
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as tmp:
+            warnings.simplefilter("always")
+            unbroken, _ = run(4)
+            run(2, save_dir=tmp)
+            resumed, start = run(4, resume_dir=tmp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(start == 2, f"resume: restore returned epoch {start}")
+    check(unbroken.state.step == resumed.state.step == 4 * TRAIN_NITERS,
+          "resume: update counts")
+    a, b = unbroken.model.state_dict(), resumed.model.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    oa = unbroken.state.optimizer.state_dict()
+    ob = resumed.state.optimizer.state_dict()
+    differ += [f"momentum {i}" for i in oa["state"]
+               if not torch.equal(oa["state"][i]["momentum_buffer"],
+                                  ob["state"][i]["momentum_buffer"])]
+    check(oa["param_groups"] == ob["param_groups"], "resume: param groups")
+    nondet = sorted({str(w.message).split(" does not have")[0][:120]
+                     for w in caught if "deterministic" in str(w.message)})
+    check(not differ, f"resume: {len(differ)} tensors differ, e.g. "
+                      f"{differ[:3]}; ops without a deterministic form: "
+                      f"{nondet}")
+    return {"crop": "2x128x256", "epochs": "2 + resume 2 vs 4",
+            "tensors_equal": len(a) + len(oa["state"]),
+            "nondeterministic_ops_warned": nondet}
+
+
+def phase_train_student(seed: int, pool, teacher_ckpt: str,
+                        eval_scenes) -> dict:
+    """Student mode at batch 12, 512x1024 from the teacher's checkpoint; the
+    main path is two epochs through TrainSession.train_epoch and
+    TrainSession.evaluate over the eval scenes (the conv kernels)."""
+    import numpy as np
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.core import DataConfig
+    from fasterseg_tpu_torch.eval import Evaluator
+    from fasterseg_tpu_torch.models import InferenceRunner
+    from fasterseg_tpu_torch.train import TrainSession, learning_rate
+    t0 = time.perf_counter()
+    cfg = _train_config("student", seed)
+    session = TrainSession(cfg, ASSETS, device=DEVICE)
+    res = session.load_teacher_weights(teacher_ckpt)
+    check(not res.missing, f"teacher checkpoint lacks {res.missing[:3]}")
+    row = {"phase": "train_student", "batch": cfg.data.batch_size,
+           "crop": [cfg.data.image_height, cfg.data.image_width],
+           "teacher_load": {"missing": len(res.missing),
+                            "unexpected": len(res.unexpected),
+                            "mismatched": len(res.mismatched)}}
+    before = {k: v.clone() for k, v in session.model.state_dict().items()}
+    loader = _loader(cfg, pool)
+    group = session.state.optimizer.param_groups[0]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        epochs, lrs = [], []
+        for epoch in range(2):
+            epochs.append(session.train_epoch(loader, epoch, TRAIN_NITERS))
+            lrs.append(group["lr"])
+            # the rate of the epoch's last update: 0.01 * 0.992^epoch
+            want = cfg.lr * cfg.lr_decay ** epoch
+            check(abs(group["lr"] - want) <= 1e-12 * want
+                  and group["lr"] == learning_rate(group,
+                                                   session.state.step - 1),
+                  f"train_student: lr {group['lr']} after epoch {epoch}, "
+                  f"want {want}")
+        torch.cuda.synchronize()
+        row["step_launches"] = kernels.launch_counts()
+        for stats in epochs:
+            _finite_steps(stats, "train_student", kl=True)
+        row["losses"] = sum((s["losses"] for s in epochs), [])
+        row["losses_kl"] = sum((s["losses_kl"] for s in epochs), [])
+        row["lr_after_epochs"] = lrs
+        after = session.model.state_dict()
+        still = [k for k, v in after.items() if v.is_floating_point()
+                 and torch.equal(v, before[k])]
+        check(not still, f"train_student: {len(still)} tensors did not "
+                         f"move, e.g. {still[:3]}")
+        row["tensors_moved"] = sum(v.is_floating_point()
+                                   for v in after.values())
+        x, y = _on_card(loader.make_batch(0, 0))
+        row.update(_step_readings(session, loader, x, y))
+        # where a step's device time goes, by kernel name
+        row["step_device"] = device_breakdown(lambda: session.step(x, y),
+                                              frames=2, top=15)
+        del x, y
+    finally:
+        loader.close()
+    losses = row["fixed_batch_losses"][:5]
+    check(losses[-1] < losses[0],
+          f"train_student: the loss did not fall on a fixed batch: {losses}")
+
+    row["card_vs_cpu"] = _card_against_cpu(session, pool, seed)
+    row["resume"] = _resume_check(seed, pool, teacher_ckpt)
+
+    # the trained student evaluated through the conv kernels (fp32 runner)
+    # against the plain fp32 network on the same Evaluator
+    data = DataConfig()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ev_k = session.evaluate(eval_scenes)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    n = len(eval_scenes)
+    check(launches["conv3x3_bn_relu_s1"] == 36 * n
+          and launches["conv3x3_bn_relu_s2"] == 4 * n,
+          f"train_student evaluate: conv launches {launches}")
+    plain = InferenceRunner(session.plans[session.student_idx], session.model,
+                            dtype=torch.float32, device=DEVICE,
+                            fast_stem_enabled=False)
+    ev_p = Evaluator(eval_scenes, data.num_classes, data.image_mean,
+                     data.image_std, plain.logits,
+                     ignore_label=data.ignore_label, device=DEVICE).run()
+    d = _hist_d(ev_k.hist, ev_p.hist)
+    check(int(ev_k.hist.sum()) == int(ev_p.hist.sum()) > 0,
+          "train_student evaluate: hist sums")
+    check(d <= EVAL_DIFF_FP32, f"train_student evaluate: d = {d}")
+    row["evaluate"] = {"images": f"{n}x{HW[0]}x{HW[1]}", "launches": launches,
+                       "d_kernels_vs_plain": d, "miou": ev_k.mean_iu,
+                       "pixel_acc": ev_k.pixel_acc,
+                       "plain_miou": ev_p.mean_iu}
+    row["seconds"] = time.perf_counter() - t0
+    row["gpu"] = gpu_line()
+    emit(row)
     return row
 
 
@@ -795,6 +1157,9 @@ def phase_agreement_seeds(seeds) -> None:
 
 
 def main() -> int:
+    # cuBLAS needs this before CUDA starts for deterministic products (the
+    # resume check of train_student turns deterministic algorithms on)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--agreement-seeds", default=None, metavar="0,1,...",
@@ -821,7 +1186,14 @@ def main() -> int:
     phase_reference()
     student = _serve("student", student_plan, args.seed, timed=True)
     _serve("teacher", teacher_plan, args.seed, timed=False)
-    phase_eval(args.seed)
+    _, eval_scenes = phase_eval(args.seed)
+    pool, render_s = _train_pool(args.seed)
+    emit({"phase": "train_pool", "scenes": TRAIN_POOL, "hw": list(HW),
+          "render_s": render_s})
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_teacher(args.seed, pool, tmp)
+        phase_train_student(args.seed, pool,
+                            os.path.join(tmp, "weights0_ckpt"), eval_scenes)
 
     from fasterseg_tpu_torch.kernels import build as kbuild
     sources = {"conv3x3_bn_relu_s1": "conv3x3_bn_relu",

@@ -1,5 +1,6 @@
-"""Evaluation data: file-list datasets, the procedural ProcCity scenes and
-eval preprocessing (numpy, host side). Imports without cv2."""
+"""Data: file-list datasets, the procedural ProcCity scenes, train and eval
+preprocessing and the train loader (numpy, host side). Imports without
+cv2."""
 
 from .datasets import (
     Cityscapes,
@@ -12,4 +13,5 @@ from .datasets import (
     CITYSCAPES_COLORS,
     CITYSCAPES_TRAIN_TO_LABEL_ID,
 )
-from .preprocess import eval_preprocess, normalize
+from .preprocess import TrainPre, eval_preprocess, normalize
+from .loader import TrainLoader, get_train_loader

@@ -1,4 +1,4 @@
-"""Derived (decoded) multi-branch segmentation network, eval mode.
+"""Derived (decoded) multi-branch segmentation network.
 
 Counterpart of the reference's `Network_Multi_Path_Infer`
 (train/model_seg.py:174-408) and of the JAX package's `DerivedNet`: a static
@@ -10,10 +10,12 @@ Submodules carry the reference's state_dict names (`stem.0.conv.0`,
 `cells.{l}-{b}._op._op.conv1`, `arms32.0`, `refines16`, `ffm.conv_1x1`,
 `heads8.conv_3x3`, ...), so a reference checkpoint loads with
 `utils.weights.load_reference_state_dict`. The aux heads (`heads16`,
-`heads32`) only serve training and are not built.
+`heads32`) are built but run only in training mode, where the forward returns
+(p8, p16, p32) as the JAX package's `DerivedNet(train=True)` does.
 
-This is the plain path: every op is a torch module. The serving runner
-(models/infer.py) folds its weights once and runs the hand-written kernels.
+This is the plain path: every op is a torch module, and training
+differentiates through it. The serving runner (models/infer.py) folds its
+eval weights once and runs the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..core.plan import NetworkPlan, num_filters
-from ..ops.conv import ConvNorm
+from ..ops.conv import ConvNorm, upcast
 from ..ops.primitives import BasicResidual2x, make_op
 from ..ops.resize import resize_bilinear, scale_by
 from ..ops.seg_heads import FeatureFusion, Head
@@ -95,9 +97,12 @@ class DerivedNet(nn.Module):
                     ch[b] = spec.c_out
                     ch_at[spec.scale * stride][b] = spec.c_out
 
-        pred8_ch = []
+        pred8_ch, pred16_ch, pred32_ch = [], [], []
         for b, last in enumerate(plan.lasts):
+            if last >= 1:
+                pred16_ch.append(ch_at[16][b])
             if last == 2:
+                pred32_ch.append(ch_at[32][b])
                 self.arms32 = nn.ModuleList([
                     ConvNorm(ch_at[32][b], nf(16, hw), kernel_size=1),
                     ConvNorm(nf(16, hw), nf(8, hw), kernel_size=1)])
@@ -117,13 +122,23 @@ class DerivedNet(nn.Module):
 
         self.ffm = FeatureFusion(sum(pred8_ch), plan.ffm_channels)
         self.heads8 = Head(plan.ffm_channels, plan.num_classes)
+        # aux heads: only where their scale reaches the aggregation
+        if pred16_ch:
+            self.heads16 = Head(sum(pred16_ch), plan.num_classes)
+        if pred32_ch:
+            self.heads32 = Head(sum(pred32_ch), plan.num_classes)
         self.eval()
 
     def forward(self, x: torch.Tensor, stem_out: Optional[torch.Tensor] = None,
-                upsample: bool = True) -> torch.Tensor:
-        """`stem_out` (optional): stem features computed elsewhere (the
-        kernel stem of models/infer.py), bypassing `self.stem`.
-        `upsample=False` returns the 1/8-resolution logits."""
+                upsample: bool = True):
+        """Eval mode: logits (N, H, W, classes), or at 1/8 resolution with
+        `upsample=False`. `stem_out` (optional): stem features computed
+        elsewhere (the kernel stem of models/infer.py), bypassing
+        `self.stem`.
+
+        Training mode: (p8, p16, p32), the head's and the aux heads' logits
+        upsampled in fp32 to the input resolution (x8, x16, x32); p16 / p32
+        are None where the plan has no such head."""
         plan = self.plan
         B = plan.num_branch
         stem = self.stem(x) if stem_out is None else stem_out
@@ -142,10 +157,13 @@ class DerivedNet(nn.Module):
                     by_scale[out_scale][b] = out
 
         # BiSeNet aggregation (model_seg.py:298-335)
-        pred8 = []
+        pred8, pred16, pred32 = [], [], []
         for b, last in enumerate(plan.lasts):
             o8 = by_scale[8][b]
+            if last >= 1:
+                pred16.append(by_scale[16][b])
             if last == 2:
+                pred32.append(by_scale[32][b])
                 o16 = by_scale[16][b]
                 out = self.arms32[0](by_scale[32][b])
                 out = resize_bilinear(out, (o16.shape[-3], o16.shape[-2]))
@@ -161,4 +179,11 @@ class DerivedNet(nn.Module):
                 pred8.append(o8)
 
         p8 = self.heads8(self.ffm(torch.cat(pred8, -1)))
+        if self.training:
+            p16 = p32 = None
+            if pred32:
+                p32 = scale_by(upcast(self.heads32(torch.cat(pred32, -1))), 32)
+            if pred16:
+                p16 = scale_by(upcast(self.heads16(torch.cat(pred16, -1))), 16)
+            return scale_by(upcast(p8), 8), p16, p32
         return scale_by(p8, 8) if upsample else p8

@@ -72,10 +72,14 @@ def interp_matrix(in_size: int, out_size: int, dtype: torch.dtype,
                   device: torch.device, half_pixel: bool = False
                   ) -> torch.Tensor:
     """The matrix on `device`, copied there once: a host-to-device copy on
-    every resize would stall the host on the card's stream."""
+    every resize would stall the host on the card's stream. It is made
+    outside inference mode whatever the caller's mode, so that a training
+    forward may save it for backward after an inference-mode forward has
+    cached it."""
     build = _hp_interp_matrix_np if half_pixel else _interp_matrix_np
-    return torch.from_numpy(build(in_size, out_size)).to(
-        device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(build(in_size, out_size)).to(
+            device=device, dtype=dtype)
 
 
 def _interp_axis(x: torch.Tensor, out_size: int, axis: int,

@@ -1,5 +1,5 @@
 """Weights for the port's DerivedNet: reference state_dicts, the JAX
-package's variables, and seeded random weights.
+package's variables, seeded random weights and the training init.
 
 State_dict names are those of the reference `Network_Multi_Path_Infer`
 (see models/derived.py); conv weights are OIHW.
@@ -7,6 +7,7 @@ State_dict names are those of the reference `Network_Multi_Path_Infer`
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Mapping
 
 import numpy as np
@@ -14,6 +15,11 @@ import torch
 
 from ..core.plan import NetworkPlan
 from ..ops.conv import BatchNorm
+
+logger = logging.getLogger("fasterseg_tpu_torch")
+
+# heads that exist for training only (models/derived.py)
+AUX_HEADS = ("heads16", "heads32")
 
 # per primitive: (reference child, JAX package submodule, kind)
 _OP_LAYOUTS = {
@@ -89,27 +95,44 @@ def from_jax_variables(plan: NetworkPlan, variables: Mapping
     p, s = params["ffm"]["conv_1x1"], stats["ffm"]["conv_1x1"]
     conv("ffm.conv_1x1.conv", p["Conv_0"])
     bn("ffm.conv_1x1.bn", p["BatchNorm_0"], s["BatchNorm_0"])
-    p, s = params["heads8"], stats["heads8"]
-    conv("heads8.conv_3x3.conv", p["conv_3x3"]["Conv_0"])
-    bn("heads8.conv_3x3.bn", p["conv_3x3"]["BatchNorm_0"],
-       s["conv_3x3"]["BatchNorm_0"])
-    conv("heads8.conv_1x1", p["conv_1x1"], bias=True)
+    for head in ("heads8", *AUX_HEADS):
+        if head not in params:
+            continue
+        p, s = params[head], stats[head]
+        conv(f"{head}.conv_3x3.conv", p["conv_3x3"]["Conv_0"])
+        bn(f"{head}.conv_3x3.bn", p["conv_3x3"]["BatchNorm_0"],
+           s["conv_3x3"]["BatchNorm_0"])
+        conv(f"{head}.conv_1x1", p["conv_1x1"], bias=True)
     return sd
 
 
 def load_reference_state_dict(net: torch.nn.Module, sd: Mapping) -> None:
     """Load a reference-named state_dict (tensors or numpy arrays) into
-    `net`. Keys `net` does not use (aux heads, the bypassed FFM attention)
-    are ignored, and so is a missing `num_batches_tracked` (unused in
-    eval); any other key `net` needs raises."""
+    `net`. Keys `net` does not use (the bypassed FFM attention) are ignored,
+    and so is a missing `num_batches_tracked`. An aux head (`heads16`,
+    `heads32`; training only) loads where `sd` carries every one of its
+    tensors at `net`'s shapes and otherwise keeps its weights, with a
+    warning: an eval checkpoint need not hold it. Any other key `net` needs
+    raises."""
     own = net.state_dict()
-    missing = [k for k in own if k not in sd
-               and not k.endswith(".num_batches_tracked")]
+    aux = lambda k: k.split(".")[0] in AUX_HEADS
+    needed = lambda k: not k.endswith(".num_batches_tracked")
+    missing = [k for k in own if needed(k) and not aux(k) and k not in sd]
     if missing:
         raise KeyError(f"state_dict lacks {len(missing)} keys, e.g. "
                        f"{missing[:5]}")
+    skip = set()
+    for head in AUX_HEADS:
+        keys = [k for k in own if k.split(".")[0] == head and needed(k)]
+        if keys and not all(k in sd and tuple(np.shape(sd[k]))
+                            == tuple(own[k].shape) for k in keys):
+            logger.warning("load_reference_state_dict: %s not in the "
+                           "state_dict at the net's shapes; left as it is",
+                           head)
+            skip.add(head)
     net.load_state_dict({k: torch.as_tensor(np.asarray(sd[k]))
-                         for k in own if k in sd})
+                         for k in own if k in sd
+                         and k.split(".")[0] not in skip}, strict=False)
 
 
 @torch.no_grad()
@@ -131,4 +154,23 @@ def init_random_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
             m.bias.copy_(torch.randn(n, generator=g) * 0.1)
             m.running_mean.copy_(torch.randn(n, generator=g) * 0.1)
             m.running_var.copy_(torch.rand(n, generator=g) * 1.5 + 0.5)
+    return net
+
+
+@torch.no_grad()
+def init_training_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """The JAX package's training init, drawn from a torch.Generator seeded
+    by `seed`: Kaiming-normal convs (variance 2 / fan_in, fan_in = k*k*c_in,
+    ops/conv.py `KAIMING`), conv biases 0, BN scale 1 and bias 0, running
+    mean 0 and variance 1."""
+    g = torch.Generator().manual_seed(seed)
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           * (2.0 / fan_in) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
     return net

@@ -7,6 +7,8 @@ host that has no JAX; tests/conftest.py imports JAX, so run it there with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -331,3 +333,81 @@ def test_evaluator_kernel_path_agrees_with_plain(cuda_device):
         assert d <= 1e-4, d
         diff = (maps[0] != maps[1]).float().mean().item()
         assert diff <= 1e-4, diff
+
+
+def _one_step(net, teacher, x, y, device, dtype):
+    """One student step of copies of `net` / `teacher` on `device`, from a
+    fresh optimizer; returns the loss and the floating state."""
+    import copy
+    from fasterseg_tpu_torch.train import TrainState, make_optimizer, train_step
+    net = copy.deepcopy(net).to(device=device, dtype=dtype)
+    teacher = copy.deepcopy(teacher).to(device=device, dtype=dtype)
+    state = TrainState(net, make_optimizer(net.parameters()))
+    m = train_step(state, x.to(device=device, dtype=dtype), y.to(device),
+                   teacher, min_kept=x.shape[0] * x.shape[1] * x.shape[2] // 16)
+    return float(m["loss"]), {k: v.detach().cpu().double()
+                              for k, v in net.state_dict().items()
+                              if v.is_floating_point()}
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One student step (KL from the teacher) at batch 2, 128x256: the same
+    function on the card and the CPU, held in float64 (the loss to rtol
+    1e-8, every tensor within atol 1e-10 + rtol 1e-8), and the fp32 loss to
+    rtol 1e-4. (In fp32 the
+    card's cuDNN algorithms round differently from the CPU's; train-mode BN
+    at random init amplifies that to ~1e-5 on some tensors.)"""
+    from fasterseg_tpu_torch.models import DerivedNet, student_plan, teacher_plan
+    from fasterseg_tpu_torch.utils import init_training_
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 256, 3))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 19, (2, 128, 256)))
+    net = init_training_(DerivedNet(student_plan()), 1)
+    teacher = init_training_(DerivedNet(teacher_plan()), 0).eval()
+    card = _one_step(net, teacher, x, y, cuda_device, torch.float32)
+    cpu = _one_step(net, teacher, x, y, "cpu", torch.float32)
+    assert card[0] == pytest.approx(cpu[0], rel=1e-4)
+    card = _one_step(net, teacher, x, y, cuda_device, torch.float64)
+    cpu = _one_step(net, teacher, x, y, "cpu", torch.float64)
+    assert card[0] == pytest.approx(cpu[0], rel=1e-8)
+    for k, want in cpu[1].items():
+        torch.testing.assert_close(card[1][k], want, rtol=1e-8, atol=1e-10,
+                                   msg=k)
+
+
+def test_session_evaluate_launches_conv_kernels(cuda_device):
+    """TrainSession.evaluate after a step: the fp32 runner of the current
+    weights launches both conv kernels (36 + 4 a student forward) and its
+    hist is within 1e-4 of the plain fp32 network's."""
+    import dataclasses
+    from fasterseg_tpu_torch.core.config import (DataConfig,
+                                                 cityscapes_student_config)
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    from fasterseg_tpu_torch.eval import Evaluator
+    from fasterseg_tpu_torch.models import InferenceRunner
+    from fasterseg_tpu_torch.train import TrainSession
+    cfg = dataclasses.replace(cityscapes_student_config(), data=DataConfig(
+        image_height=64, image_width=128, batch_size=2))
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+    session = TrainSession(cfg, assets, device=cuda_device)
+    rng = np.random.default_rng(0)
+    session.step(torch.from_numpy(rng.standard_normal((2, 64, 128, 3))
+                                  .astype(np.float32)).to(cuda_device),
+                 torch.from_numpy(rng.integers(0, 19, (2, 64, 128)))
+                 .to(cuda_device))
+    ds = [ProcCity(length=2, hw=(256, 512), seed=0)[i] for i in range(2)]
+    kernels.reset_launch_counts()
+    res = session.evaluate(ds)
+    counts = kernels.launch_counts()
+    assert counts["conv3x3_bn_relu_s1"] == 72
+    assert counts["conv3x3_bn_relu_s2"] == 8
+    plain = InferenceRunner(session.plans[1], session.model,
+                            dtype=torch.float32, device=cuda_device,
+                            fast_stem_enabled=False)
+    d = cfg.data
+    want = Evaluator(ds, 19, d.image_mean, d.image_std, plain.logits,
+                     device=cuda_device).run()
+    labeled = want.hist.sum()
+    assert res.hist.sum() == labeled > 0
+    assert 0.5 * np.abs(res.hist - want.hist).sum() / labeled <= 1e-4

@@ -87,3 +87,39 @@ def test_eval_and_data_import_without_cv2():
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok"]
+
+
+_TRAIN_MODULES = ["fasterseg_tpu_torch.train", "fasterseg_tpu_torch.train.loss",
+                  "fasterseg_tpu_torch.train.loop",
+                  "fasterseg_tpu_torch.train.driver",
+                  "fasterseg_tpu_torch.data.loader",
+                  "fasterseg_tpu_torch.data.native",
+                  "fasterseg_tpu_torch.utils.checkpoint",
+                  "fasterseg_tpu_torch.utils.logging",
+                  "fasterseg_tpu_torch.utils.visualize",
+                  "fasterseg_tpu_torch.cli.train", "fasterseg_tpu_torch.cli.eval"]
+
+_TRAIN_NO_CV2 = """
+import numpy as np
+from fasterseg_tpu_torch.data import preprocess, native
+from fasterseg_tpu_torch.data.procgen import render_scene
+assert not preprocess._HAS_CV2
+img, label = render_scene(0, 0, (48, 96))
+pre = preprocess.TrainPre((0.5,) * 3, (0.25,) * 3, (32, 64))
+x, y = pre(np.random.default_rng(0), img, label)
+assert x.shape == (32, 64, 3) and y.shape == (32, 64)
+print("ok", pre.uses_native())
+"""
+
+
+def test_train_modules_import_without_jax_and_cv2():
+    """The training slice's modules are among those the probes above import
+    with JAX, the JAX package and cv2 banned; TrainPre runs without cv2 on
+    the native kernels (g++ builds them here)."""
+    assert set(_TRAIN_MODULES) <= set(_modules())
+    out = subprocess.run([sys.executable, "-c",
+                          "import sys; sys.modules['cv2'] = None\n"
+                          + _TRAIN_NO_CV2],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", "True"]
