@@ -2,14 +2,18 @@
 """Smoke run of fasterseg_tpu_torch on one NVIDIA card: build the kernels,
 hold each against its plain version, serve the shipped student and teacher
 at 1024x2048 through the kernels, evaluate the student on ProcCity scenes
-through them, and train the teacher and then the student from it.
+through them, train the teacher and then the student from it, and pretrain and
+search the supernet, then decode the searched student and run it through
+the kernels.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --agreement-seeds 0,1,2,3,4
+    python3 chip_smoke.py --profile-search
 
 The second form builds the kernels and prints only the class-map agreement
 readings of student and teacher for each seed, with the serving phases'
-bars.
+bars; the third builds them and runs only the search phase, with one search
+step under torch.profiler.
 
 Run from the root of a checkout. Phases, one JSON line each:
 
@@ -51,7 +55,22 @@ Run from the root of a checkout. Phases, one JSON line each:
                  fp32); exact resume under
                  deterministic algorithms; TrainSession.evaluate over the
                  eval scenes through the conv kernels against the plain fp32
-                 net; the same readings as train_teacher
+                 net; the same readings as train_teacher, and the online
+                 mIoU's counts timed for several numbers of private copies
+  search         fasterseg_tpu_torch.search at the repo's SearchConfig (16
+                 layers, Fch 12, five widths, teacher and student, the
+                 reference LUT) on ProcCity scenes at 512x1024: a pretrain
+                 epoch (batch 3, 256x512) with finite losses, every conv
+                 weight moved and the arch parameters fixed; a search epoch
+                 (batch 2, 224x448, two loaders) with every arch tensor
+                 moved but the teacher's 1-wide ratios, loss_latency > 0
+                 and equal to the estimator on the same draws; ms per step,
+                 images/s, peak memory (remat on and off), loaders' ms per
+                 batch; validate (five mIoUs in [0, 1]), arch_fps, the
+                 controller's band rule; the searched student decoded and
+                 run through all three kernels in fp32 against the plain
+                 net; save and restore bit for bit; a tiny search step in
+                 float64 on the card against the CPU
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -185,13 +204,16 @@ def call_ms(fn, reps: int = 7):
             "max": max(times), "reps": reps}
 
 
-def device_breakdown(fn, frames: int = 5, top: int = 12) -> dict:
+def device_breakdown(fn, frames: int = 5, top: int = 12,
+                     warmup: bool = True) -> dict:
     """Where one call of `fn` spends device time: torch.profiler (CUPTI)
-    over `frames` calls after a warm-up. Busy time is the union of kernel
-    and copy intervals; idle share = 1 - busy / host wall time."""
+    over `frames` calls, after a warm-up call unless `fn` is warm already.
+    Busy time is the union of kernel and copy intervals; idle share = 1 -
+    busy / host wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -874,7 +896,25 @@ def _step_readings(session, loader, x, y) -> dict:
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2 ** 30,
             "loader_ms_per_batch": statistics.median(loader_ms),
+            "loader_pool": loader.pool_size, "nproc": os.cpu_count(),
             "fixed_batch_losses": losses}
+
+
+def _count_copies_probe(labels) -> dict:
+    """One count of the online mIoU (`eval.metrics._bincount`, 20 bins, the
+    batch's labels as the values: three such counts a step) timed for
+    several numbers of private copies of the bins; every count equal."""
+    import torch
+    from fasterseg_tpu_torch.eval import metrics
+    idx = (labels.long() + 1).clamp(0, 19).reshape(-1)
+    want = metrics._bincount(idx, 20, 1)
+    out = {"values": idx.numel(), "chosen": metrics.COUNT_COPIES}
+    for copies in (1, 8, 64, 512, 4096):
+        check(torch.equal(metrics._bincount(idx, 20, copies), want),
+              f"counts with {copies} copies differ")
+        out[str(copies)] = call_ms(lambda: metrics._bincount(idx, 20,
+                                                             copies))["median"]
+    return out
 
 
 def _finite_steps(stats, name, kl: bool):
@@ -1093,6 +1133,7 @@ def phase_train_student(seed: int, pool, teacher_ckpt: str,
         # where a step's device time goes, by kernel name
         row["step_device"] = device_breakdown(lambda: session.step(x, y),
                                               frames=2, top=15)
+        row["count_copies_ms"] = _count_copies_probe(y)
         del x, y
     finally:
         loader.close()
@@ -1135,6 +1176,483 @@ def phase_train_student(seed: int, pool, teacher_ckpt: str,
     return row
 
 
+# -------------------------------------------------------------------- search
+
+
+SEARCH_POOL = 8                    # ProcCity scenes at 512x1024 (the x2
+                                   # down-sampled frames search crops)
+SEARCH_NITERS = 2                  # steps an epoch in the search phase
+# timed steps after the epoch's (which warm cuDNN's autotuning up): a
+# search step issues ~670 k launches and takes ~20 s (PERF.md), so few
+SEARCH_TIMED = 2
+VAL_HW = (512, 1024)               # SearchConfig's eval size
+
+
+def _standin_ms(key: str) -> float:
+    """A stand-in latency (a product of the key's sizes) for the tiny
+    card-vs-CPU check, whose Fch 8 keys the reference's table lacks; both
+    devices read the same table, so only equality matters there."""
+    from fasterseg_tpu_torch.latency.lut import parse_key
+    _, f = parse_key(key)
+    size = f.get("H", 1) * f.get("W", 1) * f.get("Cin", f.get("C", 1)) \
+        * f.get("Cout", 1) * f.get("kernel", 3) ** 2
+    return 0.01 + 1e-9 * size / f.get("stride", 1) ** 2
+
+
+def _search_configs(seed: int):
+    """The repo's SearchConfig (16 layers, Fch 12, five widths, teacher and
+    student, reference LUT priced at 1024x2048): pretrain at batch 3 and
+    256x512 crops, search at batch 2 and 224x448."""
+    from fasterseg_tpu_torch.core.config import (DataConfig,
+                                                 cityscapes_pretrain_config,
+                                                 cityscapes_search_config)
+    pre = cityscapes_pretrain_config(seed=seed, data=DataConfig(
+        gt_down_sampling=8, down_sampling=2, image_height=256,
+        image_width=512, batch_size=3))
+    return pre, cityscapes_search_config(seed=seed)
+
+
+def _search_pool(seed: int):
+    from concurrent.futures import ThreadPoolExecutor
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    scenes = ProcCity(length=SEARCH_POOL, hw=VAL_HW, seed=seed + 7,
+                      split="train")
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(scenes.__getitem__, range(SEARCH_POOL)))
+
+
+def _loader_ms(loader) -> float:
+    """The loader's ms per batch alone (host, median of 3)."""
+    times = []
+    for step in range(3):
+        t0 = time.perf_counter()
+        loader.make_batch(99, step)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _timed_steps(step, batch: int) -> dict:
+    """ms per step (CUDA events around `step()`, the median of SEARCH_TIMED
+    with min/max; the epoch before them is the warm-up), images/s and the
+    peak memory over those steps."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(SEARCH_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    return {"step_ms": {"median": ms, "min": min(times), "max": max(times),
+                        "reps": len(times)},
+            "images_per_s": batch / ms * 1e3,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _arch_tensors(engine):
+    return [(f"arch{idx}.{name}", t) for idx, ap in sorted(
+        engine.arch_params.items()) for name, t in zip(
+        ("alpha0", "alpha1", "alpha2", "beta1", "beta2", "ratio0",
+         "ratio1", "ratio2"), ap.tensors())]
+
+
+def _same(a, b, where: str = "") -> list:
+    """Paths at which two nested payloads (dicts, lists, tensors, numbers)
+    differ; tensors are compared bit for bit."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return [] if (isinstance(b, torch.Tensor) and a.shape == b.shape
+                      and torch.equal(a.cpu(), b.cpu())) else [where]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [where]
+        return sum((_same(a[k], b[k], f"{where}/{k}") for k in a), [])
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [where]
+        return sum((_same(x, y, f"{where}/{i}")
+                    for i, (x, y) in enumerate(zip(a, b))), [])
+    return [] if a == b else [where]
+
+
+def _tensor_count(tree) -> int:
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return 1
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_count(v) for v in tree)
+    return 0
+
+
+def _search_card_vs_cpu(seed: int, pool) -> dict:
+    """One arch step and one weight step of search at a tiny size (5
+    layers, Fch 8, batch 2 at 64x128) in float64, from one state and the
+    same draws, on the card and on the CPU: every tensor of the supernet
+    and every arch tensor within atol 1e-10 + rtol 1e-8."""
+    import torch
+    from fasterseg_tpu_torch.core.config import (DataConfig,
+                                                 cityscapes_search_config)
+    from fasterseg_tpu_torch.data import TrainLoader, TrainPre
+    from fasterseg_tpu_torch.latency import LatencyLUT
+    from fasterseg_tpu_torch.search import SearchEngine, draw_noise, to_device
+    cfg = cityscapes_search_config(seed=seed, layers=5, Fch=8, data=DataConfig(
+        gt_down_sampling=8, down_sampling=2, image_height=64,
+        image_width=128, batch_size=2))
+    d = cfg.data
+    loader = TrainLoader(pool, TrainPre(d.image_mean, d.image_std, (64, 128),
+                                        d.train_scale_array, 8,
+                                        d.ignore_label), 2, seed=seed)
+    x, y = (torch.from_numpy(a) for a in loader.make_batch(0, 0))
+    loader.close()
+    gen = torch.Generator().manual_seed(seed)
+    out, seconds = {}, {}
+    noise = None
+    for name, device in (("cpu", "cpu"), ("card", DEVICE)):
+        t0 = time.perf_counter()
+        engine = SearchEngine(cfg, lut=LatencyLUT(provider=_standin_ms),
+                              device=device)
+        engine.model.double()
+        for _, t in _arch_tensors(engine):
+            t.data = t.data.double()
+        engine.tables = {k: v.double() for k, v in engine.tables.items()}
+        if noise is None:     # drawn once, on the host, for both devices
+            fw = engine.forwards(False)
+            noise = (engine.draw_noise(fw, gen), {
+                idx: draw_noise(ap.ratios, engine.prun_modes[idx], engine.nw,
+                                gen)
+                for idx, ap in engine.arch_params.items()},
+                engine.draw_noise(fw, gen))
+        n = to_device(noise, torch.device(device))
+        xd, yd = x.double().to(device), y.to(device)
+        am = engine.arch_step(xd, yd, noise=n[0], latency_noise=n[1])
+        loss = engine.weight_step(xd, yd, False, noise=n[2])
+        out[name] = ({k: v.detach().cpu() for k, v in
+                      engine.model.state_dict().items()
+                      if v.is_floating_point()},
+                     {k: t.detach().cpu() for k, t in _arch_tensors(engine)},
+                     {k: float(v) for k, v in am.items()}, float(loss))
+        seconds[name] = time.perf_counter() - t0
+        del engine
+    worst, over = [0.0, ""], []
+    for part in (0, 1):
+        for k, want in out["cpu"][part].items():
+            got = out["card"][part][k]
+            err = (got - want).abs()
+            worst = max(worst, [err.max().item(), k])
+            if bool((err > CARD_CPU_F64_ATOL
+                     + CARD_CPU_F64_RTOL * want.abs()).any()):
+                over.append(k)
+    for k, v in out["cpu"][2].items():
+        check(abs(out["card"][2][k] - v) <= CARD_CPU_F64_RTOL * abs(v),
+              f"search card vs CPU: {k} {out['card'][2][k]} vs {v}")
+    check(abs(out["card"][3] - out["cpu"][3]) <= CARD_CPU_F64_RTOL
+          * abs(out["cpu"][3]), f"search card vs CPU: loss {out['card'][3]}"
+          f" vs {out['cpu'][3]}")
+    check(not over, f"search card vs CPU in float64: {len(over)} tensors "
+                    f"over the bar, e.g. {over[:3]}; worst {worst}")
+    return {"size": "5 layers, Fch 8, 2x64x128, float64",
+            "tensors": len(out["cpu"][0]) + len(out["cpu"][1]),
+            "max_abs_err": worst[0], "max_abs_err_tensor": worst[1],
+            "losses": {"card": [out["card"][2]["loss_arch"], out["card"][3]],
+                       "cpu": [out["cpu"][2]["loss_arch"], out["cpu"][3]]},
+            "seconds": seconds}
+
+
+def _decoded_student(engine, seed: int, eval_scenes, lasts) -> dict:
+    """The searched student decoded (numpy_arch -> decode_network ->
+    build_plan -> DerivedNet with seeded random weights) and run through
+    the kernels in fp32: Evaluator over the eval scenes and one class map,
+    against the plain fp32 net."""
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.core import DataConfig
+    from fasterseg_tpu_torch.core.genotype import decode_network
+    from fasterseg_tpu_torch.core.plan import build_plan
+    from fasterseg_tpu_torch.data.preprocess import eval_preprocess
+    from fasterseg_tpu_torch.eval import Evaluator
+    from fasterseg_tpu_torch.models import DerivedNet, InferenceRunner
+    from fasterseg_tpu_torch.utils import init_random_
+    c, data = engine.config, DataConfig()
+    genos = decode_network(engine.numpy_arch(1), engine.wml, c.layers,
+                           ignore_skip=False)
+    plan = build_plan(genos, lasts, Fch=c.Fch, num_classes=c.num_classes,
+                      stem_head_width=c.stem_head_width[1])
+    net = init_random_(DerivedNet(plan), seed)
+    kern = InferenceRunner(plan, net, dtype=torch.float32, device=DEVICE)
+    plain = InferenceRunner(plan, net, dtype=torch.float32, device=DEVICE,
+                            fast_stem_enabled=False)
+    x = torch.from_numpy(eval_preprocess(
+        eval_scenes[0]["data"], data.image_mean, data.image_std)[None]
+    ).to(DEVICE)
+    ev = lambda fwd: Evaluator(eval_scenes, data.num_classes,
+                               data.image_mean, data.image_std, fwd,
+                               ignore_label=data.ignore_label, device=DEVICE)
+    # the main path: the counts are 0 just before and read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res_k = ev(kern.logits).run()
+    cm = kern.classmap(x)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for k, n in launches.items():
+        check(n > 0, f"search: decoded student: kernel {k} was not launched")
+    res_p = ev(plain.logits).run()
+    d = _hist_d(res_k.hist, res_p.hist)
+    check(int(res_k.hist.sum()) == int(res_p.hist.sum()) > 0,
+          "search: decoded student: hist sums")
+    check(d <= EVAL_DIFF_FP32, f"search: decoded student: d = {d}")
+    agree = (cm == plain.classmap(x)).float().mean().item()
+    check(agree >= AGREE_FP32,
+          f"search: decoded student class map agrees on {agree}")
+    return {"lasts": list(lasts), "ops": [list(g.ops) for g in
+                                          plan.genotypes],
+            "images": f"{len(eval_scenes)}x{HW[0]}x{HW[1]}",
+            "launches": launches, "d_kernels_vs_plain": d,
+            "classmap_agree_fp32_kernels_vs_plain": agree,
+            "miou": res_k.mean_iu}
+
+
+def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
+    """Supernet pretrain and bi-level search at the repo's SearchConfig on
+    the card (fp32, cuDNN autotuned): SearchEngine.train_epoch for a
+    pretrain epoch and a search epoch on ProcCity loaders, validate,
+    arch_fps from the reference LUT, the decoded searched student through
+    the kernels, save and restore. `profile`: the remat-off step under the
+    profiler."""
+    import math
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.core.plan import select_lasts
+    from fasterseg_tpu_torch.data import TrainLoader, TrainPre
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    from fasterseg_tpu_torch.search import (SearchEngine, draw_noise,
+                                            latency_terms, to_device)
+    t0 = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    cfg_pre, cfg = _search_configs(seed)
+    pool = _search_pool(seed)
+    half = SEARCH_POOL // 2
+
+    def loader(c, scenes):
+        d = c.data
+        return TrainLoader(scenes, TrainPre(
+            d.image_mean, d.image_std, (d.image_height, d.image_width),
+            d.train_scale_array, d.gt_down_sampling, d.ignore_label),
+            d.batch_size, seed=c.seed)
+
+    def batch(ld):
+        return to_device(tuple(torch.from_numpy(a) for a in
+                               ld.make_batch(0, 0)), torch.device(DEVICE))
+
+    row = {"phase": "search", "layers": cfg.layers, "Fch": cfg.Fch,
+           "widths": len(cfg.width_mult_list),
+           "nproc": os.cpu_count(), "part_seconds": {}}
+    mark = [time.perf_counter()]
+
+    def part(name):
+        """Seconds since the previous part ended, under `name`."""
+        now = time.perf_counter()
+        row["part_seconds"][name] = now - mark[0]
+        mark[0] = now
+
+    # ---- pretrain: a weight step's four sandwich forwards on arch 0
+    t1 = time.perf_counter()
+    engine = SearchEngine(cfg_pre, device=DEVICE)
+    row["params"] = sum(p.numel() for p in engine.model.parameters())
+    row["engine_build_s"] = time.perf_counter() - t1
+    ld = loader(cfg_pre, pool[:half])
+    before = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    arch_before = [t.detach().clone() for _, t in _arch_tensors(engine)]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        te = time.perf_counter()
+        stats = engine.train_epoch(ld, None, 0, True, False, SEARCH_NITERS)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - te
+        launches = kernels.launch_counts()
+        check(all(math.isfinite(v) for v in stats["losses"]),
+              f"search pretrain: losses {stats['losses']}")
+        convs = [k for k, v in engine.model.named_parameters() if v.ndim == 4]
+        after = engine.model.state_dict()
+        still = [k for k in convs if torch.equal(after[k], before[k])]
+        check(not still, f"search pretrain: {len(still)} conv weights did "
+                         f"not move, e.g. {still[:3]}")
+        check(all(torch.equal(a, t) for a, (_, t) in
+                  zip(arch_before, _arch_tensors(engine))),
+              "search pretrain: arch parameters moved")
+        x, y = batch(ld)
+        gen = torch.Generator().manual_seed(seed)
+        row["pretrain"] = {
+            "batch": cfg_pre.data.batch_size,
+            "crop": [cfg_pre.data.image_height, cfg_pre.data.image_width],
+            "losses": stats["losses"], "step_launches": launches,
+            "epoch_seconds": epoch_s, "conv_weights_moved": len(convs),
+            **_timed_steps(lambda: engine.weight_step(x, y, True, gen),
+                           cfg_pre.data.batch_size),
+            "loader_ms_per_batch": _loader_ms(ld),
+            "loader_pool": ld.pool_size}
+    finally:
+        ld.close()
+    del engine, before, x, y
+    torch.cuda.empty_cache()
+    part("pretrain")
+
+    # ---- search: an arch step and a weight step a step, two loaders
+    engine = SearchEngine(cfg, device=DEVICE)
+    lw, la = loader(cfg, pool[:half]), loader(cfg, pool[half:])
+    arch_before = [t.detach().clone() for _, t in _arch_tensors(engine)]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        te = time.perf_counter()
+        stats = engine.train_epoch(lw, la, 0, False, True, SEARCH_NITERS)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - te
+        launches = kernels.launch_counts()
+        for k in ("loss", "loss_arch", "loss_latency",
+                  "latency_supernet_ms"):
+            check(math.isfinite(stats[k]), f"search: {k} {stats[k]}")
+        check(stats["loss_latency"] > 0,
+              f"search: loss_latency {stats['loss_latency']}")
+        moved = {name: not torch.equal(a, t) for a, (name, t) in
+                 zip(arch_before, _arch_tensors(engine))}
+        # the teacher's ratio logits are 1 wide: their softmax is constant,
+        # so they get no gradient and Adam leaves them where they are
+        fixed = {f"arch0.ratio{s}" for s in range(3)}
+        wrong = [k for k, m in moved.items() if m == (k in fixed)]
+        check(not wrong, f"search: arch tensors moved wrongly: {wrong}")
+
+        # loss_latency against the estimator on the same draws
+        xa, ya = batch(la)
+        gen = torch.Generator().manual_seed(seed + 1)
+        noise = engine.draw_noise(engine.forwards(False), gen)
+        lat_noise = {idx: draw_noise(ap.ratios, engine.prun_modes[idx],
+                                     engine.nw, gen)
+                     for idx, ap in engine.arch_params.items()}
+        noise, lat_noise = to_device((noise, lat_noise),
+                                     torch.device(DEVICE))
+        pins = [engine.model.width_pins(i) for i in range(2)]
+        with torch.no_grad():
+            lats = latency_terms(engine.tables, engine.stem_ms,
+                                 engine.arch_params, cfg.layers, engine.nw,
+                                 engine.prun_modes, [p[0] for p in pins],
+                                 [p[1] for p in pins], noise=lat_noise)
+            want = sum(w * float(lats[i]) for i, w in
+                       enumerate(engine.controller.weights))
+        am = engine.arch_step(xa, ya, noise=noise, latency_noise=lat_noise)
+        got = float(am["loss_latency"])
+        check(got > 0 and abs(got - want) <= 1e-6 * want,
+              f"search: loss_latency {got} vs the estimator's {want}")
+
+        x, y = batch(lw)
+        gen = torch.Generator().manual_seed(seed + 2)
+
+        def search_step():
+            engine.arch_step(xa, ya, gen)
+            engine.weight_step(x, y, False, gen)
+
+        row["search"] = {
+            "batch": cfg.data.batch_size,
+            "crop": [cfg.data.image_height, cfg.data.image_width],
+            "losses": stats["losses"], "loss_arch": stats["loss_arch"],
+            "loss_latency": stats["loss_latency"],
+            "latency_supernet_ms": stats["latency_supernet_ms"],
+            "loss_latency_vs_estimator": [got, want],
+            "step_launches": launches, "arch_moved": moved,
+            "epoch_seconds": epoch_s,
+            **_timed_steps(search_step, cfg.data.batch_size),
+            "loader_ms_per_batch": {"weight": _loader_ms(lw),
+                                    "arch": _loader_ms(la)}}
+        # one step with remat off: its peak memory beside the timed steps'
+        # (remat on); with `profile`, under the profiler (where a step's time
+        # goes: sorting its ~500 k kernel events takes the host minutes)
+        engine.model.remat = False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if profile:
+            row["search"]["step_device_remat_off"] = device_breakdown(
+                search_step, frames=1, top=12, warmup=False)
+        else:
+            search_step()
+        torch.cuda.synchronize()
+        engine.model.remat = cfg.supernet_remat
+        row["search"]["peak_gib_one_step"] = {
+            "remat_on": row["search"]["max_memory_allocated_gib"],
+            "remat_off": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del x, y, xa, ya
+    finally:
+        lw.close()
+        la.close()
+
+    part("search")
+    # ---- validation, FPS, the controller, the decoded student
+    val = ProcCity(length=2, hw=VAL_HW, seed=seed, split="val")
+    val = [val[i] for i in range(2)]
+    mious = engine.validate(val, 1, max_items=2)
+    check(len(mious) == 5 and all(0.0 <= m <= 1.0 for m in mious),
+          f"search: validate {mious}")
+    fps = {idx: engine.arch_fps(idx) for idx in (0, 1)}
+    check(all(math.isfinite(f) and f > 0 for v in fps.values() for f in v),
+          f"search: arch_fps {fps}")
+    w0 = engine.controller.weights[1]
+    fps0, fps1 = fps[1]
+    if fps0 >= cfg.fps_max[1] or fps1 >= cfg.fps_max[1]:
+        want_w = w0 / 2
+    elif fps0 <= cfg.fps_min[1] or fps1 <= cfg.fps_min[1]:
+        want_w = min(w0 * 2, cfg.latency_weight[1] * 2.0 ** 8)
+    else:
+        want_w = w0
+    w = engine.controller.update(1, fps0, fps1)
+    check(w == want_w, f"search: controller {w0} -> {w}, want {want_w}")
+    metrics = {idx: {"mIoU02": mious[3], "mIoU12": mious[4],
+                     "latency02": 1e3 / fps[idx][0],
+                     "latency12": 1e3 / fps[idx][1]} for idx in (0, 1)}
+    lasts = select_lasts(*(metrics[1][k] for k in
+                           ("mIoU02", "latency02", "mIoU12", "latency12")))
+    row["validate"] = {"images": f"2x{VAL_HW[0]}x{VAL_HW[1]}",
+                       "mious": mious}
+    row["arch_fps"] = {str(k): list(v) for k, v in fps.items()}
+    row["controller"] = {"band": [cfg.fps_min[1], cfg.fps_max[1]],
+                         "weight": [w0, w]}
+    part("validate_fps")
+    row["decoded_student"] = _decoded_student(engine, seed, eval_scenes[:2],
+                                              lasts)
+    part("decoded_student")
+
+    # ---- resume: save, restore into a new engine, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        engine.save(tmp, 0, metrics)
+        fresh = SearchEngine(cfg, device=DEVICE)
+        start = fresh.restore(tmp)
+        differ = _same(engine._resume_payload(0), fresh._resume_payload(0))
+        check(start == 1, f"search resume: restore returned {start}")
+        check(not differ, f"search resume: {len(differ)} entries differ, "
+                          f"e.g. {differ[:3]}")
+        check(fresh.controller.weights == engine.controller.weights
+              and fresh.step == engine.step, "search resume: counters")
+        row["resume"] = {"tensors_equal": _tensor_count(
+            fresh._resume_payload(0)), "step": fresh.step,
+            "controller": fresh.controller.weights}
+    del fresh, engine
+    torch.cuda.empty_cache()
+    part("resume")
+    row["card_vs_cpu"] = _search_card_vs_cpu(seed, pool)
+    part("card_vs_cpu")
+    row["seconds"] = time.perf_counter() - t0
+    row["gpu"] = gpu_line()
+    emit(row)
+    return row
+
+
 def phase_agreement_seeds(seeds) -> None:
     """Class-map agreement readings of student and teacher over seeds
     (weights and image), with the same bars as the serving phases."""
@@ -1164,6 +1682,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--agreement-seeds", default=None, metavar="0,1,...",
                     help="only read class-map agreement over these seeds")
+    ap.add_argument("--profile-search", action="store_true",
+                    help="only build and run the search phase, one search "
+                         "step under the profiler")
     args = ap.parse_args()
 
     import torch
@@ -1178,6 +1699,12 @@ def main() -> int:
     if args.agreement_seeds is not None:
         phase_build()
         phase_agreement_seeds(int(v) for v in args.agreement_seeds.split(","))
+        return 0
+    if args.profile_search:
+        from fasterseg_tpu_torch.data.procgen import ProcCity
+        phase_build()
+        scenes = ProcCity(length=2, hw=HW, seed=args.seed, split="val")
+        phase_search(args.seed, [scenes[i] for i in range(2)], profile=True)
         return 0
 
     t0 = time.perf_counter()
@@ -1194,6 +1721,8 @@ def main() -> int:
         phase_train_teacher(args.seed, pool, tmp)
         phase_train_student(args.seed, pool,
                             os.path.join(tmp, "weights0_ckpt"), eval_scenes)
+    del pool
+    search = phase_search(args.seed, eval_scenes)
 
     from fasterseg_tpu_torch.kernels import build as kbuild
     sources = {"conv3x3_bn_relu_s1": "conv3x3_bn_relu",
@@ -1211,6 +1740,8 @@ def main() -> int:
             "source": f"fasterseg_tpu_torch/csrc/{sources[name]}.cu",
             "replaces": replaces[name],
             "launches": student["launches"][name],
+            "launches_search_decoded_student":
+                search["decoded_student"]["launches"][name],
             "shape": c["shape"], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

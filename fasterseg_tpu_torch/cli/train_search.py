@@ -1,0 +1,124 @@
+"""CLI: supernet pretrain and architecture search.
+
+Counterpart of the JAX package's cli/train_search.py (the reference's
+`python search/train_search.py`, config-file driven):
+
+  python -m fasterseg_tpu_torch.cli.train_search --pretrain          # stage 1
+  python -m fasterseg_tpu_torch.cli.train_search --load RUN_DIR      # stage 2
+  python -m fasterseg_tpu_torch.cli.train_search --synthetic --device cpu \\
+      --layers 5 --epochs 1 --niters 2 --height 64 --width 128
+
+Runs on CUDA unless `--device cpu`, with cuDNN autotuning its convs. The
+latency LUT is the reference's own table (1080Ti, TensorRT) unless `--lut`
+names another, and the student's FPS band is the reference's [155, 175]
+(`--fps-band ref`) or an explicit MIN,MAX; `auto` (a band on a table
+measured on this card) waits for that table. Not ported yet: `--devices`
+(data-parallel search) and `--bf16`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--pretrain", action="store_true",
+                   help="supernet pretrain stage (no arch updates)")
+    p.add_argument("--load", default=None,
+                   help="pretrained weights dir to start the search from")
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic data (smoke runs without Cityscapes)")
+    p.add_argument("--save", default="runs/search")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--niters", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--height", type=int, default=None,
+                   help="override the train crop height (smoke runs)")
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--layers", type=int, default=None)
+    p.add_argument("--Fch", type=int, default=None)
+    p.add_argument("--lut", default=None,
+                   help="latency LUT json path (default: the reference's "
+                        "table, latency/reference_lut.json)")
+    p.add_argument("--resume", default=None, metavar="RUN_DIR",
+                   help="resume bit-exactly from an existing run dir "
+                        "(weights, both optimizers, controller, epoch)")
+    p.add_argument("--fps-band", default="ref", metavar="REF|MIN,MAX",
+                   help="student FPS band of the latency-weight controller: "
+                        "'ref' keeps the reference's [155, 175] "
+                        "(config_search.py:85-86), MIN,MAX sets it")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda)")
+    args = p.parse_args(argv)
+
+    import torch
+    torch.backends.cudnn.benchmark = True
+
+    from ..core.config import (cityscapes_pretrain_config,
+                               cityscapes_search_config)
+    from ..data import Cityscapes, DataSetting
+    from ..latency import LatencyLUT
+    from ..search import run_search
+    from ..utils.logging import create_exp_dir, get_logger
+
+    band = args.fps_band.lower()
+    if band == "auto":
+        p.error("--fps-band auto needs a latency table measured on this "
+                "card, which the port does not have yet; use 'ref' or "
+                "MIN,MAX")
+
+    cfg = (cityscapes_pretrain_config() if args.pretrain
+           else cityscapes_search_config())
+    data = cfg.data
+    if args.data_root:
+        data = dataclasses.replace(data, dataset_path=args.data_root)
+    if args.synthetic:
+        data = dataclasses.replace(data, synthetic=True)
+    if args.batch_size:
+        data = dataclasses.replace(data, batch_size=args.batch_size)
+    if args.height:
+        data = dataclasses.replace(data, image_height=args.height)
+    if args.width:
+        data = dataclasses.replace(data, image_width=args.width)
+    overrides = dict(data=data)
+    if args.load:
+        overrides["load_path"] = args.load
+    if args.layers:
+        overrides["layers"] = args.layers
+    if args.Fch:
+        overrides["Fch"] = args.Fch
+    if band != "ref":
+        lo, hi = (float(v) for v in args.fps_band.split(","))
+        overrides.update(fps_min=(0.0, lo), fps_max=(0.0, hi))
+    cfg = dataclasses.replace(cfg, **overrides)
+
+    save_dir = args.resume or create_exp_dir(
+        args.save, "pretrain" if args.pretrain else "search")
+    logger = get_logger(log_file=os.path.join(save_dir, "log.txt"))
+    logger.info("config: %s", cfg)
+    logger.info("student FPS band: [%.1f, %.1f]", cfg.fps_min[-1],
+                cfg.fps_max[-1])
+
+    lut = LatencyLUT(args.lut) if args.lut else None
+    val_dataset = None
+    if not args.synthetic and args.data_root:
+        setting = DataSetting(
+            img_root=data.dataset_path, gt_root=data.dataset_path,
+            train_source=os.path.join(data.dataset_path, data.train_source),
+            eval_source=os.path.join(data.dataset_path, data.eval_source),
+            down_sampling=data.down_sampling)
+        val_dataset = Cityscapes(setting, "val")
+
+    engine = run_search(cfg, val_dataset=val_dataset, epochs=args.epochs,
+                        niters=args.niters, save_dir=save_dir, lut=lut,
+                        resume=bool(args.resume), device=args.device)
+    logger.info("done; artifacts in %s", save_dir)
+    return engine
+
+
+if __name__ == "__main__":
+    main()

@@ -2,10 +2,14 @@
 
 Counterpart of the JAX package's data/loader.py, which replaces the
 reference's DataLoader worker processes (search/dataloader.py:34-57) with a
-thread that prepares batches ahead of the device step. Every sample's
-augmentation is keyed by (seed, epoch, step, slot) instead of process RNG
-state, so a batch is a pure function of its position and `seek` resumes a
-run exactly; the port's batches equal the JAX package's for a seed.
+thread that prepares batches ahead of the device step. That thread prepares
+a batch's slots at once on a pool of threads: `TrainPre`'s native kernels
+are called through ctypes, which releases the GIL, so the slots' resizes,
+crops and normalisations run in parallel. Every sample's augmentation is
+keyed by (seed, epoch, step, slot) instead of process RNG state, and each
+result is placed by its slot index, so a batch is a pure function of its
+position whatever the pool's schedule, and `seek` resumes a run exactly;
+the port's batches equal the JAX package's for a seed.
 
 `get_train_loader` keeps the reference's API shape, including the `portion`
 split that carves disjoint halves for the weight/arch bi-level optimization
@@ -17,6 +21,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -39,9 +44,20 @@ class TrainLoader:
         self._queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._thread: Optional[threading.Thread] = None
         self._start_epoch = 0
+        # slot workers: one a slot, at most one a core
+        self.pool_size = max(1, min(batch_size, os.cpu_count() or 1))
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool_lock = threading.Lock()
 
     def __len__(self):
         return max(1, len(self.dataset) // self.batch_size)
+
+    def _slot_pool(self) -> ThreadPoolExecutor:
+        with self._pool_lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    self.pool_size, thread_name_prefix="train-slot")
+            return self._pool
 
     def seek(self, epoch: int):
         """Restart batch production at (epoch, step 0).
@@ -59,20 +75,23 @@ class TrainLoader:
 
     def make_batch(self, epoch: int, step: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """The batch at (epoch, step), computed here (no prefetch)."""
+        """The batch at (epoch, step), computed here (no prefetch), its
+        slots prepared at once on the slot pool."""
         n = len(self.dataset)
         order_rng = np.random.default_rng((self.seed, epoch))
         order = (order_rng.permutation(n) if self.shuffle
                  else np.arange(n))
-        imgs, labels = [], []
-        for slot in range(self.batch_size):
+
+        def slot_sample(slot: int):
             idx = int(order[(step * self.batch_size + slot) % n])
             sample = self.dataset[idx]
             rng = np.random.default_rng((self.seed, epoch, step, slot))
-            img, gt = self.preprocess(rng, sample["data"], sample["label"])
-            imgs.append(img)
-            labels.append(gt)
-        return np.stack(imgs), np.stack(labels)
+            return self.preprocess(rng, sample["data"], sample["label"])
+
+        # map yields in slot order whatever order the slots finish in
+        out = list(self._slot_pool().map(slot_sample, range(self.batch_size)))
+        return (np.stack([img for img, _ in out]),
+                np.stack([gt for _, gt in out]))
 
     def _worker(self, stop: threading.Event, out: "queue.Queue"):
         # stop and out are bound when the thread starts, not read from self:
@@ -106,11 +125,16 @@ class TrainLoader:
             yield self._queue.get()
 
     def close(self):
-        """Stop the prefetch thread and wait for it."""
+        """Stop the prefetch thread and wait for it, then for the slot
+        pool's threads."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        with self._pool_lock:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
 
 
 def get_train_loader(config, dataset_cls, portion: Optional[float] = None,

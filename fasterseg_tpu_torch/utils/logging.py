@@ -1,13 +1,14 @@
-"""Console/file logging and run directories.
+"""Console/file logging, scalar metrics and run directories.
 
-Counterpart of the parts of the JAX package's utils/logging.py that training
-needs (the reference's tools/engine/logger.py): a coloured console logger
-with a FASTERSEG_LOGGING_LEVEL override and an optional file sink, and
-timestamped run directories.
+Counterpart of the JAX package's utils/logging.py (the reference's
+tools/engine/logger.py and its tensorboardX SummaryWriter): a coloured
+console logger with a FASTERSEG_LOGGING_LEVEL override and an optional file
+sink, a metric writer, and timestamped run directories.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import subprocess
@@ -48,6 +49,39 @@ def get_logger(name: str = "fasterseg_tpu_torch",
         fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
         logger.addHandler(fh)
     return logger
+
+
+class MetricWriter:
+    """`add_scalar` as SummaryWriter's: every scalar goes to
+    `log_dir/metrics.jsonl` (one JSON object a line: tag, value, step,
+    time), and to TensorBoard too where `torch.utils.tensorboard`
+    imports."""
+
+    def __init__(self, log_dir: str, tensorboard: bool = True):
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self._tb = SummaryWriter(log_dir)
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        rec = {"tag": tag, "value": float(value), "step": int(step),
+               "time": time.time()}
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
+
+    def close(self) -> None:
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def create_exp_dir(base: str, name: Optional[str] = None) -> str:

@@ -1,5 +1,5 @@
-"""Weights for the port's DerivedNet: reference state_dicts, the JAX
-package's variables, seeded random weights and the training init.
+"""Weights for the port's DerivedNet and Supernet: reference state_dicts,
+the JAX package's variables, seeded random weights and the training init.
 
 State_dict names are those of the reference `Network_Multi_Path_Infer`
 (see models/derived.py); conv weights are OIHW.
@@ -38,6 +38,46 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _conv_into(sd: Dict, tkey: str, p: Mapping, bias: bool = False) -> None:
+    """A flax conv's HWIO kernel (and bias) as `{tkey}.weight` OIHW."""
+    sd[f"{tkey}.weight"] = _t(p["conv"]["kernel"]).permute(3, 2, 0, 1) \
+        .contiguous()
+    if bias:
+        sd[f"{tkey}.bias"] = _t(p["conv"]["bias"])
+
+
+def _bn_into(sd: Dict, tkey: str, p: Mapping, s: Mapping) -> None:
+    """A flax BatchNorm's scale, bias and running statistics."""
+    sd[f"{tkey}.weight"] = _t(p["bn"]["scale"])
+    sd[f"{tkey}.bias"] = _t(p["bn"]["bias"])
+    sd[f"{tkey}.running_mean"] = _t(s["bn"]["mean"])
+    sd[f"{tkey}.running_var"] = _t(s["bn"]["var"])
+
+
+def _convnorm_into(sd: Dict, tkey: str, p: Mapping, s: Mapping) -> None:
+    """The JAX package's ConvNorm (Conv_0, BatchNorm_0) as ours
+    (`conv.0`, `conv.1`)."""
+    _conv_into(sd, f"{tkey}.conv.0", p["Conv_0"])
+    _bn_into(sd, f"{tkey}.conv.1", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def _stem_into(sd: Dict, tkey: str, p: Mapping, s: Mapping) -> None:
+    _convnorm_into(sd, f"{tkey}.0", p["stage0"], s["stage0"])
+    for i in (1, 2):
+        pi, si = p[f"stage{i}"], s[f"stage{i}"]
+        _conv_into(sd, f"{tkey}.{i}.conv1", pi["Conv_0"])
+        _bn_into(sd, f"{tkey}.{i}.bn1", pi["BatchNorm_0"], si["BatchNorm_0"])
+        _conv_into(sd, f"{tkey}.{i}.conv2", pi["Conv_1"])
+        _bn_into(sd, f"{tkey}.{i}.bn2", pi["BatchNorm_1"], si["BatchNorm_1"])
+
+
+def _head_into(sd: Dict, tkey: str, p: Mapping, s: Mapping) -> None:
+    _conv_into(sd, f"{tkey}.conv_3x3.conv", p["conv_3x3"]["Conv_0"])
+    _bn_into(sd, f"{tkey}.conv_3x3.bn", p["conv_3x3"]["BatchNorm_0"],
+             s["conv_3x3"]["BatchNorm_0"])
+    _conv_into(sd, f"{tkey}.conv_1x1", p["conv_1x1"], bias=True)
+
+
 def from_jax_variables(plan: NetworkPlan, variables: Mapping
                        ) -> Dict[str, torch.Tensor]:
     """The JAX package's DerivedNet variables ({"params", "batch_stats"},
@@ -45,34 +85,7 @@ def from_jax_variables(plan: NetworkPlan, variables: Mapping
     package's `import_derived_state_dict`, HWIO -> OIHW."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
-
-    def conv(tkey, p, bias=False):
-        sd[f"{tkey}.weight"] = _t(p["conv"]["kernel"]).permute(3, 2, 0, 1) \
-            .contiguous()
-        if bias:
-            sd[f"{tkey}.bias"] = _t(p["conv"]["bias"])
-
-    def bn(tkey, p, s):
-        sd[f"{tkey}.weight"] = _t(p["bn"]["scale"])
-        sd[f"{tkey}.bias"] = _t(p["bn"]["bias"])
-        sd[f"{tkey}.running_mean"] = _t(s["bn"]["mean"])
-        sd[f"{tkey}.running_var"] = _t(s["bn"]["var"])
-
-    def convnorm(tkey, name):
-        conv(f"{tkey}.conv.0", params[name]["Conv_0"])
-        bn(f"{tkey}.conv.1", params[name]["BatchNorm_0"],
-           stats[name]["BatchNorm_0"])
-
-    p_stem, s_stem = params["stem"], stats["stem"]
-    conv("stem.0.conv.0", p_stem["stage0"]["Conv_0"])
-    bn("stem.0.conv.1", p_stem["stage0"]["BatchNorm_0"],
-       s_stem["stage0"]["BatchNorm_0"])
-    for i in (1, 2):
-        p, s = p_stem[f"stage{i}"], s_stem[f"stage{i}"]
-        conv(f"stem.{i}.conv1", p["Conv_0"])
-        bn(f"stem.{i}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
-        conv(f"stem.{i}.conv2", p["Conv_1"])
-        bn(f"stem.{i}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
+    _stem_into(sd, "stem", params["stem"], stats["stem"])
 
     for c in plan.cells:
         if c.op == 0 and not c.down:
@@ -81,28 +94,96 @@ def from_jax_variables(plan: NetworkPlan, variables: Mapping
         tkey = f"cells.{c.layer}-{c.branch}._op._op"
         for tsub, fsub, kind in _OP_LAYOUTS[c.op]:
             if kind == "conv":
-                conv(f"{tkey}.{tsub}", params[name][fsub])
+                _conv_into(sd, f"{tkey}.{tsub}", params[name][fsub])
             else:
-                bn(f"{tkey}.{tsub}", params[name][fsub], stats[name][fsub])
+                _bn_into(sd, f"{tkey}.{tsub}", params[name][fsub],
+                         stats[name][fsub])
 
     if 2 in plan.lasts:
         for i in (0, 1):
-            convnorm(f"arms32.{i}", f"arms32_{i}")
-            convnorm(f"refines32.{i}", f"refines32_{i}")
+            for kind in ("arms32", "refines32"):
+                _convnorm_into(sd, f"{kind}.{i}", params[f"{kind}_{i}"],
+                               stats[f"{kind}_{i}"])
     if 1 in plan.lasts:
-        convnorm("arms16", "arms16")
-        convnorm("refines16", "refines16")
+        for kind in ("arms16", "refines16"):
+            _convnorm_into(sd, kind, params[kind], stats[kind])
     p, s = params["ffm"]["conv_1x1"], stats["ffm"]["conv_1x1"]
-    conv("ffm.conv_1x1.conv", p["Conv_0"])
-    bn("ffm.conv_1x1.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+    _conv_into(sd, "ffm.conv_1x1.conv", p["Conv_0"])
+    _bn_into(sd, "ffm.conv_1x1.bn", p["BatchNorm_0"], s["BatchNorm_0"])
     for head in ("heads8", *AUX_HEADS):
-        if head not in params:
-            continue
-        p, s = params[head], stats[head]
-        conv(f"{head}.conv_3x3.conv", p["conv_3x3"]["Conv_0"])
-        bn(f"{head}.conv_3x3.bn", p["conv_3x3"]["BatchNorm_0"],
-           s["conv_3x3"]["BatchNorm_0"])
-        conv(f"{head}.conv_1x1", p["conv_1x1"], bias=True)
+        if head in params:
+            _head_into(sd, head, params[head], stats[head])
+    return sd
+
+
+def _slim_op_into(sd: Dict, tkey: str, op_idx: int, stride: int,
+                  p: Mapping, s: Mapping) -> None:
+    """One of the JAX package's slim primitives: SlimConv kernels, the
+    stride-2 skip's two plain 1x1 kernels, and per-width BN tables
+    (scale, bias, mean, var: (num_widths, C) each)."""
+    def slim_bn(name):
+        sd[f"{tkey}.{name}.weight"] = _t(p[name]["scale"])
+        sd[f"{tkey}.{name}.bias"] = _t(p[name]["bias"])
+        sd[f"{tkey}.{name}.running_mean"] = _t(s[name]["mean"])
+        sd[f"{tkey}.{name}.running_var"] = _t(s[name]["var"])
+
+    if op_idx == 0 and stride == 2:
+        for name in ("conv1", "conv2"):
+            _conv_into(sd, f"{tkey}.{name}", {"conv": p[name]})
+        slim_bn("bn")
+        return
+    convs = ("conv1",) if op_idx < 3 else ("conv1", "conv2")
+    for name in convs:
+        _conv_into(sd, f"{tkey}.{name}.conv", p[name])
+    for name in (("bn",) if op_idx == 0 else
+                 tuple(f"bn{k + 1}" for k in range(len(convs)))):
+        slim_bn(name)
+
+
+def from_jax_supernet_variables(variables: Mapping, config
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's Supernet variables ({"params", "batch_stats"},
+    numpy leaves) as the port's `models.supernet.Supernet` state_dict.
+    `config` gives `layers` and `stem_head_width` (a SearchConfig).
+
+    Both of the JAX package's layouts are read: unrolled `cell_{i}_{j}`,
+    and the scan layout, whose layers 3..L-2 sit in `slayers/cell{j}` with
+    every leaf stacked over those layers (the inverse of its
+    `unrolled_to_scan_variables`)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    L = config.layers
+    sd: Dict[str, torch.Tensor] = {}
+
+    def cell_tree(col: Mapping, i: int, j: int) -> Mapping:
+        if f"cell_{i}_{j}" in col:
+            return col[f"cell_{i}_{j}"]
+        stacked = col["slayers"][f"cell{j}"]
+
+        def pick(t):
+            return ({k: pick(v) for k, v in t.items()}
+                    if isinstance(t, Mapping) else np.asarray(t)[i - 3])
+        return pick(stacked)
+
+    for i in range(L):
+        for j in range(min(i + 1, 3)):
+            p, s = cell_tree(params, i, j), cell_tree(stats, i, j)
+            for branch, stride in (("op", 1), ("down", 2)):
+                if branch not in p:
+                    continue
+                for k in range(5):
+                    _slim_op_into(sd, f"cells.{i}_{j}.{branch}.ops.{k}", k,
+                                  stride, p[branch][f"op{k}"],
+                                  s[branch][f"op{k}"])
+
+    for a in range(len(config.stem_head_width)):
+        _stem_into(sd, f"stems.{a}", params[f"stem{a}"], stats[f"stem{a}"])
+        for name in ("refine16_0", "refine16_1", "refine32_0", "refine32_1",
+                     "refine32_2", "refine32_3"):
+            _convnorm_into(sd, f"refines.{a}.{name}", params[f"{name}{a}"],
+                           stats[f"{name}{a}"])
+        for name in ("head0", "head1", "head2", "head02", "head12"):
+            _head_into(sd, f"heads.{a}.{name}", params[f"{name}{a}"],
+                       stats[f"{name}{a}"])
     return sd
 
 

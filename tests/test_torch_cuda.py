@@ -411,3 +411,76 @@ def test_session_evaluate_launches_conv_kernels(cuda_device):
     labeled = want.hist.sum()
     assert res.hist.sum() == labeled > 0
     assert 0.5 * np.abs(res.hist - want.hist).sum() / labeled <= 1e-4
+
+
+@pytest.mark.parametrize("op_idx,stride", [(0, 2), (3, 1), (4, 2)])
+def test_slim_op_on_card_matches_cpu(cuda_device, gen, op_idx, stride):
+    """A slim primitive in float64, train mode then eval mode, on the card
+    and on the CPU at every width pair: outputs and the moved BN rows within
+    1e-10 + 1e-8 |ref|."""
+    from fasterseg_tpu_torch.ops.slimmable import SLIM_OP_CLASSES
+    from fasterseg_tpu_torch.utils.weights import init_training_
+    wml = (4.0 / 12, 6.0 / 12, 8.0 / 12, 10.0 / 12, 1.0)
+    c_out = 96 if stride == 2 else 48
+    cpu = init_training_(SLIM_OP_CLASSES[op_idx](48, c_out, stride, wml), 0)
+    cpu = cpu.double()
+    card = SLIM_OP_CLASSES[op_idx](48, c_out, stride, wml).double()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda_device)
+    x = torch.from_numpy(gen.standard_normal((2, 16, 24, 48)))
+    for i in range(5):
+        for o in range(5):
+            for train in (True, False):
+                cpu.train(train)
+                card.train(train)
+                want = cpu(x, torch.tensor(i), torch.tensor(o))
+                got = card(x.to(cuda_device), torch.tensor(i, device=cuda_device),
+                           torch.tensor(o, device=cuda_device)).cpu()
+                torch.testing.assert_close(got, want, rtol=1e-8, atol=1e-10)
+    for k, v in card.state_dict().items():
+        torch.testing.assert_close(v.cpu(), cpu.state_dict()[k], rtol=1e-8,
+                                   atol=1e-10)
+
+
+def test_search_steps_on_card_match_cpu(cuda_device):
+    """An arch step and a weight step of search at a tiny size (5 layers,
+    Fch 4, batch 2 at 64x128) in float64 from one state and the same draws,
+    on the card and on the CPU: every tensor within 1e-10 + 1e-8 |ref|."""
+    from fasterseg_tpu_torch.core.config import (DataConfig,
+                                                 cityscapes_search_config)
+    from fasterseg_tpu_torch.latency import LatencyLUT
+    from fasterseg_tpu_torch.search import SearchEngine, draw_noise, to_device
+    cfg = cityscapes_search_config(layers=5, Fch=4, data=DataConfig(
+        image_height=64, image_width=128, batch_size=2, gt_down_sampling=8))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 128, 3)))
+    y = torch.from_numpy(rng.integers(0, 19, (2, 8, 16)))
+    g = torch.Generator().manual_seed(0)
+    lut = LatencyLUT(provider=lambda key: 0.01 + len(key) * 1e-3)
+    states, noise = [], None
+    for device in (torch.device("cpu"), cuda_device):
+        e = SearchEngine(cfg, lut=lut, device=device)
+        e.model.double()
+        for ap in e.arch_params.values():
+            for t in ap.tensors():
+                t.data = t.data.double()
+        e.tables = {k: v.double() for k, v in e.tables.items()}
+        if noise is None:
+            fw = e.forwards(False)
+            noise = (e.draw_noise(fw, g),
+                     {i: draw_noise(ap.ratios, e.prun_modes[i], e.nw, g)
+                      for i, ap in e.arch_params.items()},
+                     e.draw_noise(fw, g))
+        n = to_device(noise, device)
+        e.arch_step(x.to(device), y.to(device), noise=n[0],
+                    latency_noise=n[1])
+        e.weight_step(x.to(device), y.to(device), False, noise=n[2])
+        states.append({**{k: v.cpu() for k, v in
+                          e.model.state_dict().items()},
+                       **{f"arch{i}.{j}": t.detach().cpu()
+                          for i, ap in e.arch_params.items()
+                          for j, t in enumerate(ap.tensors())}})
+    for k, v in states[1].items():
+        if v.is_floating_point():
+            torch.testing.assert_close(v, states[0][k], rtol=1e-8,
+                                       atol=1e-10, msg=k)

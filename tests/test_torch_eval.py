@@ -295,3 +295,29 @@ def test_real_networks_match_jax():
     assert d <= 0.001, d
     assert abs(got.mean_iu - want.mean_iu) <= 1e-3
     assert np.isfinite(got.mean_iu) and 0 < got.pixel_acc <= 1
+
+
+@pytest.mark.parametrize("copies", [1, 3, 64, 100000])
+def test_privatised_counts_equal_index_add(copies):
+    """`_bincount` over private copies of the bins counts exactly what one
+    `index_add_` into the bins counts (and numpy's bincount), including the
+    extra bin that collects invalid pixels; so do the hists built on it."""
+    rng = np.random.default_rng(copies)
+    idx = torch.from_numpy(rng.integers(0, 21, 5001))
+    plain = torch.zeros(21, dtype=torch.int64).index_add_(
+        0, idx, torch.ones_like(idx))
+    got = tm._bincount(idx, 21, copies)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(got.numpy(), np.bincount(idx.numpy(),
+                                                           minlength=21))
+    pred = torch.from_numpy(rng.integers(0, 19, (2, 33, 47)))
+    label = torch.from_numpy(rng.integers(0, 19, (2, 33, 47)))
+    label[torch.from_numpy(rng.random((2, 33, 47)) < 0.2)] = 255
+    label[0, 0, :5] = -1
+    n = 19
+    valid = (label >= 0) & (label < n)
+    flat = torch.where(valid, n * label + pred, n * n).reshape(-1)
+    want = torch.zeros(n * n + 1, dtype=torch.int64).index_add_(
+        0, flat, torch.ones_like(flat))[:n * n].reshape(n, n)
+    assert torch.equal(tm.confusion_hist(pred, label, n), want)

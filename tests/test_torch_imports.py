@@ -123,3 +123,36 @@ def test_train_modules_import_without_jax_and_cv2():
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok", "True"]
+
+
+_SEARCH_MODULES = ["fasterseg_tpu_torch.ops.slimmable",
+                   "fasterseg_tpu_torch.latency",
+                   "fasterseg_tpu_torch.latency.lut",
+                   "fasterseg_tpu_torch.latency.tables",
+                   "fasterseg_tpu_torch.latency.derived",
+                   "fasterseg_tpu_torch.latency.estimator",
+                   "fasterseg_tpu_torch.models.supernet",
+                   "fasterseg_tpu_torch.search",
+                   "fasterseg_tpu_torch.search.gumbel",
+                   "fasterseg_tpu_torch.search.architect",
+                   "fasterseg_tpu_torch.search.loop",
+                   "fasterseg_tpu_torch.utils.weights",
+                   "fasterseg_tpu_torch.utils.logging",
+                   "fasterseg_tpu_torch.cli.train_search"]
+
+
+def test_search_modules_import_without_jax():
+    """The search slice's modules, among those the probes above import, on
+    their own with JAX, the JAX package and cv2 banned; the reference LUT
+    ships inside the package."""
+    assert set(_SEARCH_MODULES) <= set(_modules())
+    env = dict(os.environ, ALSO_BANNED="cv2")
+    out = subprocess.run([sys.executable, "-c", _PROBE, *_SEARCH_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", str(len(_SEARCH_MODULES))]
+    from fasterseg_tpu_torch.latency.lut import REFERENCE_LUT
+    assert os.path.dirname(REFERENCE_LUT) == os.path.join(
+        os.path.dirname(fasterseg_tpu_torch.__file__), "latency")
+    assert os.path.isfile(REFERENCE_LUT)

@@ -7,6 +7,7 @@ weights), the rest exact, normalisation to 1e-6.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -155,3 +156,36 @@ def test_loader_on_proccity_native():
         np.testing.assert_array_equal(xa, xb)
         np.testing.assert_array_equal(ya, yb)
     assert set(np.unique(ya)) <= set(range(19)) | {255}
+
+
+def test_loader_pool_matches_serial_and_jax():
+    """The slot pool prepares a batch larger than the pool (so threads take
+    several slots each, in whatever order they finish) bit-equal to the
+    slots prepared one after another and to the JAX package's loader."""
+    from fasterseg_tpu.data.loader import TrainLoader as JaxTrainLoader
+    pool = [ProcCity(length=3, hw=(64, 128), seed=1)[i] for i in range(3)]
+    pre = tpre.TrainPre(MEAN, STD, (32, 64), gt_down_sampling=2)
+    a = TrainLoader(pool, pre, batch_size=(os.cpu_count() or 1) + 3, seed=5)
+    assert a.pool_size < a.batch_size
+    b = JaxTrainLoader(pool, jpre.TrainPre(MEAN, STD, (32, 64),
+                                           gt_down_sampling=2),
+                       batch_size=a.batch_size, seed=5)
+    try:
+        for epoch, step in ((0, 0), (2, 1)):
+            x, y = a.make_batch(epoch, step)
+            order = np.random.default_rng((5, epoch)).permutation(len(pool))
+            for slot in range(a.batch_size):
+                s = pool[int(order[(step * a.batch_size + slot) % len(pool)])]
+                xs, ys = pre(np.random.default_rng((5, epoch, step, slot)),
+                             s["data"], s["label"])
+                np.testing.assert_array_equal(x[slot], xs)
+                np.testing.assert_array_equal(y[slot], ys)
+            xb, yb = b._make_batch(epoch, step)
+            np.testing.assert_array_equal(x, xb)
+            np.testing.assert_array_equal(y, yb)
+        # the prefetch thread draws on the same pool; close stops both
+        it = iter(a)
+        np.testing.assert_array_equal(next(it)[0], a.make_batch(0, 0)[0])
+    finally:
+        a.close()
+    assert a._thread is None and a._pool is None
