@@ -9,11 +9,14 @@ the kernels.
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --agreement-seeds 0,1,2,3,4
     python3 chip_smoke.py --profile-search
+    python3 chip_smoke.py --latency-only [--detail-dir DIR]
 
 The second form builds the kernels and prints only the class-map agreement
 readings of student and teacher for each seed, with the serving phases'
 bars; the third builds them and runs only the search phase, with one search
-step under torch.profiler.
+step under torch.profiler; the fourth builds them, serves the student and
+runs the latency phase (with DIR, it keeps the swept table and its
+calibration there as latency_swept_h100_lut*.json).
 
 Run from the root of a checkout. Phases, one JSON line each:
 
@@ -71,6 +74,20 @@ Run from the root of a checkout. Phases, one JSON line each:
                  run through all three kernels in fp32 against the plain
                  net; save and restore bit for bit; a tiny search step in
                  float64 on the card against the CPU
+  latency        the LUT sweep (cli/latency_lut: every searchable op at
+                 every width pair and stride, the supernet tables, both
+                 stems, the four shipped walks) through the kernels into a
+                 temporary table, with the conv counters rising at both
+                 strides; zero misses on it and on the committed H100 table;
+                 every distinct 3x3 conv shape of the sweep against its
+                 plain version (fp32 1e-4 / 2e-4, bf16 2e-2) and timed
+                 against cuDNN; cli/run_latency for student and teacher
+                 (all three kernels launched; the student's graph-slope
+                 class map within 5 % of serve_student's graph replay);
+                 cli/calibrate_latency on the swept table (each plan's
+                 calibrated walk within 10 % of measured); the auto FPS
+                 band; cli/profile (stem + body_agg + upsample within 10 %
+                 of logits). `--detail-dir DIR` keeps the long readings
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -81,7 +98,9 @@ host without CUDA. Needs no JAX.
 import argparse
 import copy
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -137,6 +156,15 @@ def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def clocks_line() -> str:
+    """The card's SM clock, power draw and temperature now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                          "temperature.gpu", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -1653,6 +1681,204 @@ def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
     return row
 
 
+LATENCY_CALIB_BAR = 0.10           # calibrated walk vs measured, each plan
+LATENCY_GRAPH_BAR = 0.05           # run_latency's class map vs serve_student
+PROFILE_SUM_BAR = 0.10             # stem + body_agg + upsample vs logits
+
+
+def _sweep_shapes(run):
+    """Run `run()` with the conv wrapper, as the serving route calls it,
+    recording each distinct 3x3 conv shape (H, W, Ci, Ci2, Co, stride)."""
+    from fasterseg_tpu_torch.kernels import conv as kconv
+    from fasterseg_tpu_torch.latency import measure
+    from fasterseg_tpu_torch.models import fast_body
+    shapes = set()
+    real = kconv.conv3x3_bn_relu
+
+    def recording(x, w, scale, bias, stride=1, relu=True, x2=None):
+        shapes.add((x.shape[1], x.shape[2], x.shape[3],
+                    0 if x2 is None else x2.shape[3], scale.shape[0],
+                    stride))
+        return real(x, w, scale, bias, stride=stride, relu=relu, x2=x2)
+
+    fast_body.conv3x3_bn_relu = measure.conv3x3_bn_relu = recording
+    try:
+        out = run()
+    finally:
+        fast_body.conv3x3_bn_relu = measure.conv3x3_bn_relu = real
+    return out, sorted(shapes)
+
+
+def _no_misses(lut_path: str) -> dict:
+    """Every key of the supernet tables, both stems and the four shipped
+    walks at 1024x2048 is in the table (a provider that raises)."""
+    from fasterseg_tpu_torch.cli.calibrate_latency import shipped_plans
+    from fasterseg_tpu_torch.core.config import WIDTH_MULT_LIST
+    from fasterseg_tpu_torch.latency import (LatencyLUT, build_supernet_tables,
+                                             derived_latency_ms,
+                                             stem_latency_ms)
+
+    def miss(name):
+        raise KeyError(f"latency table {lut_path} misses {name}")
+
+    lut = LatencyLUT(lut_path, provider=miss)
+    build_supernet_tables(lut, 16, 12, WIDTH_MULT_LIST, HW)
+    stems = {sw: stem_latency_ms(lut, 12, sw, HW) for sw in (1.0, 8.0 / 12)}
+    walks = {n: derived_latency_ms(lut, plan, HW)
+             for n, plan in shipped_plans().items()}
+    return {"entries": len(lut), "misses": 0, "stems_ms": stems,
+            "walks_ms": walks}
+
+
+def phase_latency(seed: int, serve_graph_classmap_ms: float,
+                  detail_dir=None) -> dict:
+    """Latency measurement through the kernels: the LUT sweep
+    (cli/latency_lut) into a temporary table, its coverage with zero
+    misses, every distinct 3x3 conv shape it ran against the plain version
+    (and timed against cuDNN), run_latency for student and teacher, the
+    calibration of the four shipped plans, the auto FPS band, and the
+    profile CLI's serving split."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.cli import calibrate_latency, latency_lut
+    from fasterseg_tpu_torch.cli import profile as profile_cli
+    from fasterseg_tpu_torch.cli import run_latency
+    from fasterseg_tpu_torch.latency import (LatencyLUT, derived_latency_ms,
+                                             fps_band, h100_lut)
+    from fasterseg_tpu_torch.latency.lut import H100_LUT
+    from fasterseg_tpu_torch.models import student_plan
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row = {"phase": "latency", "part_seconds": {},
+           "clocks": {"start": clocks_line()}}
+    mark = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        row["part_seconds"][name] = now - mark[0]
+        row["clocks"][name] = clocks_line()
+        mark[0] = now
+
+    def quiet(fn, name):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        if detail_dir:
+            with open(os.path.join(detail_dir, f"latency_{name}.log"),
+                      "w") as f:
+                f.write(buf.getvalue())
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="latency_") as tmp:
+        lut_path = os.path.join(tmp, "h100_lut.json")
+        # the sweep: the counts are 0 just before and read just after
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        ts = time.perf_counter()
+        lut, shapes = _sweep_shapes(lambda: quiet(
+            lambda: latency_lut.main(["--out", lut_path]), "sweep"))
+        torch.cuda.synchronize()
+        row["sweep"] = {"seconds": time.perf_counter() - ts,
+                        "entries": len(lut),
+                        "set": "full (ops, supernet tables, stems, walks)",
+                        "launches": kernels.launch_counts(),
+                        "conv_shapes": len(shapes)}
+        for k in ("conv3x3_bn_relu_s1", "conv3x3_bn_relu_s2"):
+            check(row["sweep"]["launches"][k] > 0,
+                  f"latency sweep: kernel {k} was not launched")
+        row["coverage"] = _no_misses(lut_path)
+        row["committed_coverage"] = _no_misses(H100_LUT)
+        part("sweep")
+
+        # every distinct 3x3 shape of the sweep against its plain version
+        rng = np.random.default_rng(seed)
+        cases = [_conv_case(rng, "sweep", h, w, ci, co, s,
+                            torch.device(DEVICE), ci2=ci2)
+                 for h, w, ci, ci2, co, s in shapes]
+        ratios = sorted(((c["ms"] / c["library_ms"], c["shape"])
+                         for c in cases), reverse=True)
+        row["conv_vs_cudnn"] = {
+            "shapes": len(cases),
+            "lose_to_cudnn": sum(r > 1.0 for r, _ in ratios),
+            "worst_ratios": [{"shape": sh, "kernel_over_cudnn": r}
+                             for r, sh in ratios[:10]],
+            "max_abs_err_fp32": max(c["max_abs_err_fp32"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "sum_ms": sum(c["ms"] for c in cases),
+            "sum_library_ms": sum(c["library_ms"] for c in cases)}
+        if detail_dir:
+            with open(os.path.join(detail_dir, "latency_conv_shapes.json"),
+                      "w") as f:
+                json.dump(cases, f, indent=0)
+        del cases
+        part("conv_shapes")
+
+        # run_latency: the counts are 0 just before and read just after
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        student = quiet(lambda: run_latency.main(["--lut", lut_path]),
+                        "run_latency_student")
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        for k, n in launches.items():
+            check(n > 0, f"run_latency: kernel {k} was not launched")
+        teacher = quiet(lambda: run_latency.main(
+            ["--teacher", "--lut", lut_path]), "run_latency_teacher")
+        rel = student["classmap_ms"] / serve_graph_classmap_ms - 1.0
+        check(abs(rel) <= LATENCY_GRAPH_BAR,
+              f"run_latency classmap {student['classmap_ms']} ms vs the "
+              f"serve_student graph {serve_graph_classmap_ms} ms")
+        for r in (student, teacher):
+            check(all(math.isfinite(r[k]) and r[k] > 0 for k in
+                      ("logits_ms", "classmap_ms", "logits_call_ms",
+                       "classmap_call_ms", "lut_estimate_ms")),
+                  "run_latency: readings")
+        row["run_latency"] = {"student": student, "teacher": teacher,
+                              "launches_student": launches,
+                              "classmap_vs_serve_graph": rel}
+        part("run_latency")
+
+        calib_path = os.path.join(tmp, "h100_lut_calibration.json")
+        calib = quiet(lambda: calibrate_latency.main(
+            ["--lut", lut_path, "--apply", "--out", calib_path]), "calibrate")
+        fitted = LatencyLUT(lut_path)
+        plans = calibrate_latency.shipped_plans()
+        errs = {}
+        for name, r in calib["plans"].items():
+            est = derived_latency_ms(fitted, plans[name], HW)
+            errs[name] = est / r["measured_ms"] - 1.0
+            check(abs(errs[name]) <= LATENCY_CALIB_BAR,
+                  f"calibration: {name} walk {est} ms vs measured "
+                  f"{r['measured_ms']} ms")
+        row["calibration"] = {**calib, "calibrated_rel_err": errs}
+        band = fps_band(fitted, student_plan(), HW)
+        committed_band = fps_band(h100_lut(), student_plan(), HW)
+        check(0 < band[0] < band[1], f"auto band {band}")
+        row["auto_band"] = {"swept_table": list(band),
+                            "committed_table": list(committed_band)}
+        if detail_dir:
+            for src in (lut_path, calib_path):
+                shutil.copy(src, os.path.join(
+                    detail_dir, "latency_swept_" + os.path.basename(src)))
+        part("calibrate")
+
+        prof = quiet(lambda: profile_cli.main([]), "profile")
+        total = prof["stem_ms"] + prof["body_agg_ms"] + prof["upsample_ms"]
+        check(abs(total / prof["logits_ms"] - 1.0) <= PROFILE_SUM_BAR,
+              f"profile: segments {total} ms vs logits {prof['logits_ms']} ms")
+        check(prof["gflops"] > 0 and prof["mparams"] > 0, "profile: counts")
+        row["profile"] = prof
+        part("profile")
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    row["gpu"] = gpu_line()
+    emit(row)
+    return row
+
+
 def phase_agreement_seeds(seeds) -> None:
     """Class-map agreement readings of student and teacher over seeds
     (weights and image), with the same bars as the serving phases."""
@@ -1685,7 +1911,16 @@ def main() -> int:
     ap.add_argument("--profile-search", action="store_true",
                     help="only build and run the search phase, one search "
                          "step under the profiler")
+    ap.add_argument("--latency-only", action="store_true",
+                    help="only build, serve the student and run the latency "
+                         "phase")
+    ap.add_argument("--detail-dir", default=None, metavar="DIR",
+                    help="write the latency phase's long readings (every "
+                         "conv shape, the swept table, the CLIs' output) "
+                         "here")
     args = ap.parse_args()
+    if args.detail_dir:
+        os.makedirs(args.detail_dir, exist_ok=True)
 
     import torch
     if not torch.cuda.is_available():
@@ -1707,6 +1942,13 @@ def main() -> int:
         phase_search(args.seed, [scenes[i] for i in range(2)], profile=True)
         return 0
 
+    if args.latency_only:
+        phase_build()
+        student = _serve("student", student_plan, args.seed, timed=True)
+        phase_latency(args.seed, student["graph_classmap_ms"],
+                      args.detail_dir)
+        return 0
+
     t0 = time.perf_counter()
     build = phase_build()
     kern = phase_kernels(args.seed)
@@ -1723,6 +1965,8 @@ def main() -> int:
                             os.path.join(tmp, "weights0_ckpt"), eval_scenes)
     del pool
     search = phase_search(args.seed, eval_scenes)
+    latency = phase_latency(args.seed, student["graph_classmap_ms"],
+                            args.detail_dir)
 
     from fasterseg_tpu_torch.kernels import build as kbuild
     sources = {"conv3x3_bn_relu_s1": "conv3x3_bn_relu",
@@ -1742,6 +1986,9 @@ def main() -> int:
             "launches": student["launches"][name],
             "launches_search_decoded_student":
                 search["decoded_student"]["launches"][name],
+            "launches_latency_sweep": latency["sweep"]["launches"][name],
+            "launches_run_latency":
+                latency["run_latency"]["launches_student"][name],
             "shape": c["shape"], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

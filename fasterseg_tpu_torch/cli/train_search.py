@@ -10,10 +10,14 @@ Counterpart of the JAX package's cli/train_search.py (the reference's
 
 Runs on CUDA unless `--device cpu`, with cuDNN autotuning its convs. The
 latency LUT is the reference's own table (1080Ti, TensorRT) unless `--lut`
-names another, and the student's FPS band is the reference's [155, 175]
-(`--fps-band ref`) or an explicit MIN,MAX; `auto` (a band on a table
-measured on this card) waits for that table. Not ported yet: `--devices`
-(data-parallel search) and `--bf16`.
+names another (for example the H100 table,
+fasterseg_tpu_torch/latency/h100_lut.json); on the card, keys missing from
+it are measured through the kernels (latency/measure.py) and saved into it.
+The student's FPS band is the reference's [155, 175] (`--fps-band ref`, the
+default), the reference's relative band around the shipped student's
+estimate on the LUT in use (`auto`, latency/derived.py `fps_band`), or an
+explicit MIN,MAX. Not ported yet: `--devices` (data-parallel search) and
+`--bf16`.
 """
 
 from __future__ import annotations
@@ -47,10 +51,12 @@ def main(argv=None):
     p.add_argument("--resume", default=None, metavar="RUN_DIR",
                    help="resume bit-exactly from an existing run dir "
                         "(weights, both optimizers, controller, epoch)")
-    p.add_argument("--fps-band", default="ref", metavar="REF|MIN,MAX",
+    p.add_argument("--fps-band", default="ref", metavar="REF|AUTO|MIN,MAX",
                    help="student FPS band of the latency-weight controller: "
                         "'ref' keeps the reference's [155, 175] "
-                        "(config_search.py:85-86), MIN,MAX sets it")
+                        "(config_search.py:85-86); 'auto' scales the "
+                        "reference's relative band by the LUT's estimate of "
+                        "the shipped student; MIN,MAX sets it")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
@@ -61,15 +67,21 @@ def main(argv=None):
     from ..core.config import (cityscapes_pretrain_config,
                                cityscapes_search_config)
     from ..data import Cityscapes, DataSetting
-    from ..latency import LatencyLUT
+    from ..latency import LatencyLUT, fps_band, reference_lut
+    from ..models import student_plan
+    from ..models.infer import resolve_device
     from ..search import run_search
     from ..utils.logging import create_exp_dir, get_logger
 
+    device = resolve_device(args.device)
+    lut = None
+    if args.lut:
+        provider = None
+        if device.type == "cuda":
+            from ..latency.measure import measured_provider
+            provider = measured_provider(device=device)
+        lut = LatencyLUT(args.lut, provider=provider)
     band = args.fps_band.lower()
-    if band == "auto":
-        p.error("--fps-band auto needs a latency table measured on this "
-                "card, which the port does not have yet; use 'ref' or "
-                "MIN,MAX")
 
     cfg = (cityscapes_pretrain_config() if args.pretrain
            else cityscapes_search_config())
@@ -92,7 +104,11 @@ def main(argv=None):
     if args.Fch:
         overrides["Fch"] = args.Fch
     if band != "ref":
-        lo, hi = (float(v) for v in args.fps_band.split(","))
+        if band == "auto":
+            lo, hi = fps_band(lut if lut is not None else reference_lut(),
+                              student_plan())
+        else:
+            lo, hi = (float(v) for v in args.fps_band.split(","))
         overrides.update(fps_min=(0.0, lo), fps_max=(0.0, hi))
     cfg = dataclasses.replace(cfg, **overrides)
 
@@ -103,7 +119,6 @@ def main(argv=None):
     logger.info("student FPS band: [%.1f, %.1f]", cfg.fps_min[-1],
                 cfg.fps_max[-1])
 
-    lut = LatencyLUT(args.lut) if args.lut else None
     val_dataset = None
     if not args.synthetic and args.data_root:
         setting = DataSetting(
@@ -115,7 +130,7 @@ def main(argv=None):
 
     engine = run_search(cfg, val_dataset=val_dataset, epochs=args.epochs,
                         niters=args.niters, save_dir=save_dir, lut=lut,
-                        resume=bool(args.resume), device=args.device)
+                        resume=bool(args.resume), device=device)
     logger.info("done; artifacts in %s", save_dir)
     return engine
 

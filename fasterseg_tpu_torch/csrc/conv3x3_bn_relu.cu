@@ -963,6 +963,9 @@ extern "C" int conv3x3_bn_relu_plan(int H, int W, int ci1, int ci2, int Co, int 
   if (is_bf16 && ci1 % 16 == 0 && ci2 % 16 == 0 && valid_tile(ck, bn)) {
     const int nch = ceil_div(ci1, ck) + ceil_div(ci2, ck);
     const TcPlan p = tc_plan(Ho, Wo, nch, Co, stride, ck, bn);
+    // no tile and ring fit in shared memory: refuse rather than launch a
+    // zeroed plan
+    if (p.nwg == 0) return (int)cudaErrorInvalidConfiguration;
     out[0] = 2;
     if (p.ksplit > 1) {
       out[1] = p.n_work * 64 * p.nwg * bn;

@@ -77,3 +77,21 @@ def derived_latency_ms(lut: LatencyLUT, plan: NetworkPlan,
 def fps_of(lut: LatencyLUT, plan: NetworkPlan,
            input_hw: Tuple[int, int] = (1024, 2048)) -> float:
     return 1000.0 / derived_latency_ms(lut, plan, input_hw)
+
+
+# The reference holds its student in [155, 175] FPS around its shipped
+# genotype's 159.7 LUT-FPS operating point (config_search.py:85-86 vs
+# arch_0.pt latency02 = 6.26 ms): a band RELATIVE to the estimate, about
+# [-3 %, +10 %].
+# Scaling it by the same table's estimate of the operating point keeps the
+# controller's pressure there independent of the table's absolute scale.
+REF_BAND_REL = (155.0 / 159.7, 175.0 / 159.7)
+
+
+def fps_band(lut: LatencyLUT, plan: NetworkPlan,
+             input_hw: Tuple[int, int] = (1024, 2048)) -> Tuple[float, float]:
+    """The student's FPS band on `lut`'s (calibrated) scale: REF_BAND_REL
+    times `lut`'s FPS estimate of `plan`, normally the shipped student.
+    Counterpart of the JAX package's `tpu_fps_band` (latency/derived.py)."""
+    fps = fps_of(lut, plan, input_hw)
+    return (REF_BAND_REL[0] * fps, REF_BAND_REL[1] * fps)

@@ -4,9 +4,10 @@ Copy of the JAX package's latency/lut.py (numpy-free, torch-free), the
 counterpart of the reference's `latency_lookup_table.npy`
 (latency/latency_lookup_table.py, search/operations.py:33-36,115-123): the
 same key scheme, JSON persistence, and measure-on-miss through an optional
-provider. The port has no provider yet, so a miss raises `KeyError`. Its
-default table is the reference's own (1080Ti, TensorRT), shipped beside this
-module as `reference_lut.json` (`reference_lut()`).
+provider (latency/measure.py `measured_provider` on the card); without one a
+miss raises `KeyError`. Two tables ship beside this module: the reference's
+own (1080Ti, TensorRT; `reference_lut()`, the search's default) and the one
+measured on an H100 through the port's kernels (`h100_lut()`).
 
 Key formats (reference parity):
   {Op}_H{h}_W{w}_Cin{cin}_Cout{cout}_stride{s}_dilation{d}
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 OP_LUT_NAMES = (
@@ -66,6 +68,11 @@ def head_key(h, w, c_in, c_out) -> str:
     return f"head_H{h}_W{w}_Cin{c_in}_Cout{c_out}"
 
 
+# how far a plan's width may lie from a calibrated family before
+# `factor_for` warns
+FAMILY_TOLERANCE = 0.1
+
+
 class LatencyLUT:
     """name -> milliseconds, JSON-backed, measure-on-miss."""
 
@@ -97,9 +104,17 @@ class LatencyLUT:
 
     def factor_for(self, width: float) -> float:
         """Fusion factor for a plan whose stem/head width multiplier is
-        `width`; nearest family match, else the scalar default."""
+        `width`; nearest family match, else the scalar default. The snap is
+        unbounded, as in the JAX package; a width more than
+        FAMILY_TOLERANCE from every calibrated family warns."""
         if self.fusion_factors:
             key = min(self.fusion_factors, key=lambda k: abs(k - width))
+            if abs(key - width) > FAMILY_TOLERANCE:
+                warnings.warn(
+                    f"width {width:.4f} lies {abs(key - width):.4f} from the "
+                    f"nearest calibrated family {key}; its fusion factor "
+                    f"{self.fusion_factors[key]} is an extrapolation",
+                    stacklevel=2)
             return self.fusion_factors[key]
         return self.fusion_factor
 
@@ -189,7 +204,23 @@ REFERENCE_LUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def reference_lut() -> LatencyLUT:
     """The paper's own table (1080Ti, TensorRT; 667 entries) with the
-    reference's op-4 alias: the port's default until it has a table measured
-    on its own card. It holds every key the supernet tables and both stems
-    need at 1024x2048."""
+    reference's op-4 alias: the search's default. It holds every key the
+    supernet tables and both stems need at 1024x2048."""
     return LatencyLUT(REFERENCE_LUT, alias_op4=True)
+
+
+H100_LUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "h100_lut.json")
+
+
+def h100_lut(provider: Optional[Callable[[str], float]] = None
+             ) -> LatencyLUT:
+    """The table measured on an NVIDIA H100 through the port's serving route
+    (`cli/latency_lut.py`, calibrated by `cli/calibrate_latency.py`; the
+    card's name and power limit are in `h100_lut_calibration.json`). It
+    holds every key the supernet tables, both stems and the shipped
+    genotypes' walks need at 1024x2048. Read-only: misses that `provider`
+    measures stay in memory."""
+    lut = LatencyLUT(H100_LUT, provider=provider)
+    lut.path = None
+    return lut

@@ -484,3 +484,80 @@ def test_search_steps_on_card_match_cpu(cuda_device):
         if v.is_floating_point():
             torch.testing.assert_close(v, states[0][k], rtol=1e-8,
                                        atol=1e-10, msg=k)
+
+
+# ---------------------------------------------------------------- latency
+
+
+def _graph_ms(fn, reps=20):
+    """Device ms of one call: CUDA events around a replay of a graph of
+    `reps` calls, median of 5 (chip_smoke.py's `graph_ms`)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def test_graph_slope_ms_floored_and_near_graph_ms(cuda_device, gen):
+    from fasterseg_tpu_torch.latency.measure import graph_slope_ms
+    x, w, scale, bias = _conv_args(gen, 256, 512, 64, 64, cuda_device)
+    xb, cw = x.bfloat16(), split_weights(w)
+    fn = lambda: conv3x3_bn_relu(xb, cw, scale, bias)
+    slope, spread, kind = graph_slope_ms(fn, n1=4, n2=24, reps=5,
+                                         floor_ms=1e-3)
+    assert slope >= 1e-3 and np.isfinite(spread) and kind == "raw_minmax"
+    assert abs(slope / _graph_ms(fn) - 1.0) <= 0.2
+
+
+# a stride-2 op at 1/32 onto 16x32 with Co 768, a zoomed op whose convs run
+# at 1/64, and the head
+@pytest.mark.parametrize("key", [
+    "BasicResidual2x_H32_W64_Cin384_Cout768_stride2_dilation1",
+    "BasicResidual_downup_2x_H32_W64_Cin384_Cout384_stride1_dilation1",
+    "head_H128_W256_Cin192_Cout19"])
+def test_measured_provider_keys_on_card(cuda_device, key):
+    from fasterseg_tpu_torch.latency.measure import (build_key,
+                                                     measured_provider,
+                                                     serving_route)
+    from fasterseg_tpu_torch.utils.weights import init_random_
+    kernels.reset_launch_counts()
+    ms = measured_provider(device="cuda", verbose=False)(key)
+    torch.cuda.synchronize()
+    assert np.isfinite(ms) and ms >= 1e-3
+    counts = kernels.launch_counts()
+    assert counts["conv3x3_bn_relu_s1"] + counts["conv3x3_bn_relu_s2"] > 0
+    # the same route in fp32 on the card against its plain version
+    op = build_key(key)
+    init_random_(op.module, 0)
+    x = torch.randn(op.shape, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        got = serving_route(op, "cuda")(x.to(cuda_device)).cpu()
+        want = serving_route(op, "cpu")(x)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_cost_model_calibrate_raises(cuda_device, monkeypatch):
+    from fasterseg_tpu_torch.latency import measure
+    from fasterseg_tpu_torch.latency.cost_model import H100CostModel
+    fitted = H100CostModel.calibrate()
+    assert np.isfinite(fitted.peak_tflops) and fitted.peak_tflops > 0
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("measurement failed")
+
+    monkeypatch.setattr(measure, "graph_slope_ms", broken)
+    with pytest.raises(RuntimeError, match="measurement failed"):
+        H100CostModel.calibrate()

@@ -156,3 +156,55 @@ def test_search_modules_import_without_jax():
     assert os.path.dirname(REFERENCE_LUT) == os.path.join(
         os.path.dirname(fasterseg_tpu_torch.__file__), "latency")
     assert os.path.isfile(REFERENCE_LUT)
+
+
+_LATENCY_MODULES = ["fasterseg_tpu_torch.latency.measure",
+                    "fasterseg_tpu_torch.latency.cost_model",
+                    "fasterseg_tpu_torch.utils.flops",
+                    "fasterseg_tpu_torch.utils.profiling",
+                    "fasterseg_tpu_torch.cli.latency_lut",
+                    "fasterseg_tpu_torch.cli.run_latency",
+                    "fasterseg_tpu_torch.cli.calibrate_latency",
+                    "fasterseg_tpu_torch.cli.profile"]
+
+
+class _Parsed(Exception):
+    pass
+
+
+def test_latency_modules_import_without_jax(monkeypatch):
+    """The latency slice's modules on their own with JAX, the JAX package
+    and cv2 banned; the H100 table and its calibration ship inside the
+    package, and the entry points default to the card."""
+    import argparse
+    import inspect
+    assert set(_LATENCY_MODULES) <= set(_modules())
+    env = dict(os.environ, ALSO_BANNED="cv2")
+    out = subprocess.run([sys.executable, "-c", _PROBE, *_LATENCY_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", str(len(_LATENCY_MODULES))]
+    from fasterseg_tpu_torch.cli import (calibrate_latency, latency_lut,
+                                         profile, run_latency)
+    from fasterseg_tpu_torch.latency.lut import H100_LUT
+    from fasterseg_tpu_torch.utils.profiling import serving_segments, trace
+    assert os.path.dirname(H100_LUT) == os.path.join(
+        os.path.dirname(fasterseg_tpu_torch.__file__), "latency")
+    assert os.path.isfile(H100_LUT)
+    assert os.path.isfile(calibrate_latency.calibration_path(H100_LUT))
+    for fn in (serving_segments, trace):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    defaults = []
+
+    def parse(self, *args, **kwargs):
+        defaults.append(self.get_default("device"))
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
+    for cli in (calibrate_latency, latency_lut, profile, run_latency):
+        try:
+            cli.main([])
+        except _Parsed:
+            pass
+    assert defaults == ["cuda"] * 4

@@ -184,7 +184,7 @@ def test_left_out_options_raise():
         run_search(cfg, plot_genotypes=True, device="cpu")
     from fasterseg_tpu_torch.cli.train_search import main
     with pytest.raises(SystemExit):
-        main(["--synthetic", "--fps-band", "auto", "--device", "cpu"])
+        main(["--synthetic", "--devices", "2", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------- slow tier
