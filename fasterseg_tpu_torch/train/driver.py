@@ -36,7 +36,7 @@ from ..eval.metrics import SegMetrics
 from ..models import DerivedNet, InferenceRunner
 from ..models.infer import resolve_device
 from ..utils.checkpoint import PartialLoad, load, partial_load, save
-from ..utils.weights import init_training_
+from ..utils.weights import init_jax_draw_
 from .loop import TrainState, make_optimizer, train_step
 
 logger = logging.getLogger("fasterseg_tpu_torch.train")
@@ -68,7 +68,8 @@ def build_model_from_arch(config: TrainConfig, arch_path: str,
                           arch_idx: int, stem_head_width, seed: int
                           ) -> Tuple[DerivedNet, NetworkPlan, list]:
     """Decode, select branches and build the DerivedNet with the training
-    init seeded by `seed` (train.py:90-105)."""
+    init seeded by `seed` (train.py:90-105): the JAX package's own draw
+    for that seed (`init_jax_draw_`)."""
     arch, metrics = load_arch_any(arch_path)
     genos = decode_network(arch, config.width_mult_list, config.layers,
                            ignore_skip=(arch_idx == 0))
@@ -79,7 +80,7 @@ def build_model_from_arch(config: TrainConfig, arch_path: str,
     plan = build_plan(genos, lasts, Fch=config.Fch,
                       num_classes=config.data.num_classes,
                       stem_head_width=stem_head_width)
-    return init_training_(DerivedNet(plan), seed), plan, lasts
+    return init_jax_draw_(DerivedNet(plan), seed), plan, lasts
 
 
 class TrainSession:

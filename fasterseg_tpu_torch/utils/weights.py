@@ -15,6 +15,7 @@ import torch
 
 from ..core.plan import NetworkPlan
 from ..ops.conv import BatchNorm
+from . import prng
 
 logger = logging.getLogger("fasterseg_tpu_torch")
 
@@ -114,6 +115,61 @@ def from_jax_variables(plan: NetworkPlan, variables: Mapping
         if head in params:
             _head_into(sd, head, params[head], stats[head])
     return sd
+
+
+class _LeafPaths:
+    """Stands in for the JAX package's variable tree in `from_jax_variables`
+    and records where each leaf sits: the leaf read at `path` turns into a
+    (1, 1, 1, 1) array that holds its index in `paths`."""
+
+    def __init__(self, paths: list, path: tuple = ()):
+        self._paths, self._path = paths, path
+
+    def __getitem__(self, name: str) -> "_LeafPaths":
+        return _LeafPaths(self._paths, self._path + (name,))
+
+    def __contains__(self, name: str) -> bool:
+        return True
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        self._paths.append(self._path)
+        return np.full((1, 1, 1, 1), len(self._paths) - 1, np.float32)
+
+
+def jax_paths(plan: NetworkPlan) -> Dict[str, tuple]:
+    """Each state_dict key `from_jax_variables` writes for `plan` (the aux
+    heads included), with the path of its leaf in the JAX package's
+    variables: ("params" or "batch_stats", module names..., leaf name)."""
+    paths: list = []
+    sd = from_jax_variables(plan, _LeafPaths(paths))
+    return {k: paths[int(v.reshape(-1)[0])] for k, v in sd.items()}
+
+
+def from_jax_quantized(plan: NetworkPlan, qvars: Mapping) -> Dict:
+    """The JAX package's int8 `qvars` ({"params_q", "params_scale",
+    "batch_stats"}, numpy leaves; models/quantize.py) as the port's
+    (models/quantize.py): int8 kernels HWIO -> OIHW, their (1, 1, 1, O)
+    scales -> (O, 1, 1, 1), the rest as `from_jax_variables` carries it."""
+    pq, ps, stats = (qvars["params_q"], qvars["params_scale"],
+                     qvars["batch_stats"])
+    is_int8 = lambda q: np.asarray(q).dtype == np.int8
+
+    def scales_or_zeros(q, s):
+        # a leaf's scale where it is int8 (every scale is > 0), zeros of its
+        # own shape elsewhere, so one walk maps both
+        if isinstance(q, Mapping):
+            return {k: scales_or_zeros(q[k], s[k]) for k in q}
+        return (np.asarray(s, np.float32) if is_int8(q)
+                else np.zeros(np.shape(q), np.float32))
+
+    sd = from_jax_variables(plan, {"params": pq, "batch_stats": stats})
+    sc = from_jax_variables(plan, {"params": scales_or_zeros(pq, ps),
+                                   "batch_stats": stats})
+    scales = {k: v for k, v in sc.items()
+              if v.ndim == 4 and v.shape[1:] == (1, 1, 1) and bool(
+                  (v > 0).all())}
+    q = {k: v.to(torch.int8) if k in scales else v for k, v in sd.items()}
+    return {"params_q": q, "params_scale": scales}
 
 
 def _slim_op_into(sd: Dict, tkey: str, op_idx: int, stride: int,
@@ -250,6 +306,30 @@ def init_training_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
             fan_in = m.weight[0].numel()
             m.weight.copy_(torch.randn(m.weight.shape, generator=g)
                            * (2.0 / fan_in) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
+    return net
+
+
+@torch.no_grad()
+def init_jax_draw_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """The JAX package's training init of a DerivedNet, draw and all: each
+    conv kernel is the one `create_derived(net.plan, PRNGKey(seed))` draws
+    (flax's key for the kernel's module path, `KAIMING`; utils/prng.py);
+    conv biases 0, BN scale 1 and bias 0, running mean 0 and variance 1."""
+    root = prng.prng_key(seed)
+    paths = jax_paths(net.plan)
+    for name, m in net.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            path = paths.get(f"{name}.weight")
+            if path is None:
+                raise KeyError(f"{name}: no JAX package leaf")
+            o, i, kh, kw = m.weight.shape
+            w = prng.kaiming_normal(prng.flax_param_key(root, path[1:-1]),
+                                    (kh, kw, i, o))
+            m.weight.copy_(torch.from_numpy(w).permute(3, 2, 0, 1))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):

@@ -225,6 +225,33 @@ def test_runner_kernels_match_plain_on_card(cuda_device):
     assert (cm == plain.classmap(x)).float().mean().item() >= 0.998
 
 
+def test_quantized_runner_kernels_match_plain_on_card(cuda_device):
+    """QuantizedRunner (int8 weights) through the kernels against its own
+    plain path on the card, fp32, at 128x256 with seeded weights: every
+    kernel launched, the runner's bars; the bf16 kernel path finite."""
+    from fasterseg_tpu_torch.models import (DerivedNet, QuantizedRunner,
+                                            quantize_variables, student_plan)
+    from fasterseg_tpu_torch.utils import init_random_
+    plan = student_plan()
+    net = init_random_(DerivedNet(plan), 0)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 128, 256, 3)).astype(np.float32))
+    qvars, fast = quantize_variables(plan, net, dtype=torch.float32,
+                                     device=cuda_device)
+    plain = QuantizedRunner(plan, qvars, dtype=torch.float32,
+                            device=cuda_device, fast_stem_enabled=False)
+    kernels.reset_launch_counts()
+    got = fast.logits(x)
+    cm = fast.classmap(x)
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in kernels.launch_counts().values())
+    torch.testing.assert_close(got, plain.logits(x), rtol=5e-4, atol=5e-4)
+    assert (cm == plain.classmap(x)).float().mean().item() >= 0.998
+    bf16 = QuantizedRunner(plan, qvars, device=cuda_device)
+    assert bool(torch.isfinite(bf16.logits(x).float()).all())
+    assert bf16.classmap(x).shape == (1, 128, 256)
+
+
 def test_graph_replay_matches(cuda_device):
     """A CUDA graph captured around the runner's class map (as chip_smoke.py
     times it) replays to the launch-by-launch result."""

@@ -208,3 +208,22 @@ def test_latency_modules_import_without_jax(monkeypatch):
         except _Parsed:
             pass
     assert defaults == ["cuda"] * 4
+
+
+_INT8_STUDY_MODULES = ["fasterseg_tpu_torch.models.quantize",
+                       "fasterseg_tpu_torch.cli.miou_study",
+                       "fasterseg_tpu_torch.cli.int8_check",
+                       "fasterseg_tpu_torch.utils.prng"]
+
+
+def test_int8_and_study_modules_import_without_jax():
+    """The int8 and mIoU-study modules and the JAX package's draw in numpy
+    on their own, with JAX, the JAX package and cv2 banned (the GPU host
+    has none of them)."""
+    assert set(_INT8_STUDY_MODULES) <= set(_modules())
+    env = dict(os.environ, ALSO_BANNED="cv2")
+    out = subprocess.run([sys.executable, "-c", _PROBE,
+                          *_INT8_STUDY_MODULES], cwd=REPO,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", str(len(_INT8_STUDY_MODULES))]
