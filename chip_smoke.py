@@ -12,6 +12,7 @@ whose trained student then holds the bf16 and int8 class-map bars.
     python3 chip_smoke.py --profile-search
     python3 chip_smoke.py --latency-only [--detail-dir DIR]
     python3 chip_smoke.py --study-only [--miou-epochs N]
+    python3 chip_smoke.py --distributed-only
 
 The second form builds the kernels and prints only the class-map agreement
 readings of student and teacher for each seed, with the serving phases'
@@ -20,7 +21,8 @@ step under torch.profiler; the fourth builds them, serves the student and
 runs the latency phase (with DIR, it keeps the swept table and its
 calibration there as latency_swept_h100_lut*.json); the fifth builds them
 and runs only the miou, bf16_trained and int8 phases (`--miou-epochs 40`:
-the 40 + 40 epoch study of MIOU.md).
+the 40 + 40 epoch study of MIOU.md); the sixth builds them, renders the
+scenes and runs only the distributed phase.
 
 Run from the root of a checkout. Phases, one JSON line each:
 
@@ -64,6 +66,18 @@ Run from the root of a checkout. Phases, one JSON line each:
                  eval scenes through the conv kernels against the plain fp32
                  net; the same readings as train_teacher, and the online
                  mIoU's counts timed for several numbers of private copies
+  distributed    data parallelism (fasterseg_tpu_torch.parallel): (1) one
+                 full-width distill step (batch 12 at 512x1024, fp32,
+                 deterministic algorithms) on an NCCL mesh of one rank equal
+                 bit for bit to the session's step without a mesh, both
+                 timed in turns, with the bytes a step all-reduces; on two
+                 gloo ranks sharing cuda:0, each against one rank: (2) the
+                 float64 student step (256x512, batch 4) within atol 1e-10 +
+                 rtol 1e-8, (3) Evaluator through the conv kernels over 5
+                 scenes at 1024x2048 (hist identical, each rank's conv
+                 launches > 0 and summing to the one-rank run's), (4) the
+                 tiny search step in float64; (5) the dry run's steps
+                 (parallel/dryrun.py) on the same two ranks
   search         fasterseg_tpu_torch.search at the repo's SearchConfig (16
                  layers, Fch 12, five widths, teacher and student, the
                  reference LUT) on ProcCity scenes at 512x1024: a pretrain
@@ -119,10 +133,11 @@ Run from the root of a checkout. Phases, one JSON line each:
                  replay at 1024x2048 and the bytes of qvars against fp32
   study_bars     the bars of miou, bf16_trained and int8, held after all
                  three have printed their rows: the list of those missed.
-                 A miss of int8's agreement bar is held unless the JAX
-                 package's arithmetic misses it on the same weights too
-                 (the quantizer is the JAX package's, bit for bit); then it
-                 is listed apart, with both readings, and does not fail
+                 Where the JAX package's arithmetic misses int8's agreement
+                 floor on the same weights too (the quantizer is the JAX
+                 package's, bit for bit), the kernel path is held instead
+                 to no more than 0.05 pp below that arithmetic's agreement,
+                 and the floor's miss is listed apart with both readings
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -1239,6 +1254,335 @@ def phase_train_student(seed: int, pool, teacher_ckpt: str,
     return row
 
 
+# --------------------------------------------------------------- distributed
+
+
+DIST_RANKS = 2                     # gloo ranks that share cuda:0
+DIST_EVAL_SCENES = 5               # odd: the last global batch is padded
+DIST_TIMED = 3                     # timed steps a session in bar (1)
+
+
+def _state(session) -> dict:
+    """A TrainSession's parameters, BN statistics and momentum buffers, on
+    the CPU."""
+    opt = session.state.optimizer
+    out = {k: v.detach().cpu().clone()
+           for k, v in session.model.state_dict().items()}
+    for name, p in session.model.named_parameters():
+        if p in opt.state:
+            out[f"momentum.{name}"] = opt.state[p]["momentum_buffer"].cpu()
+    return out
+
+
+def _largest_diff(a: dict, b: dict):
+    """(largest |a - b| over the float tensors, its key, keys not equal bit
+    for bit)."""
+    import torch
+    worst, key, differ = 0.0, "", []
+    for k, v in a.items():
+        if not torch.equal(v, b[k]):
+            differ.append(k)
+        if v.is_floating_point() and v.numel():
+            e = float((v.double() - b[k].double()).abs().max())
+            if e > worst:
+                worst, key = e, k
+    return worst, key, differ
+
+
+def _timed_step(session, x, y) -> float:
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    session.step(x, y)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _nccl_world_of_one(seed: int, pool) -> dict:
+    """Bar (1): the shipped student and teacher at full width, batch 12 at
+    512x1024, fp32, deterministic algorithms: one distill step of a session
+    on an NCCL mesh of one rank equals the no-mesh session's step from the
+    same state bit for bit (the world-1 merge of the BN moments, the
+    reductions and the global OHEM head are exact). Then the step's time
+    with and without the mesh, in turns, and the bytes it all-reduces."""
+    import torch
+    from fasterseg_tpu_torch.parallel import init_mesh
+    from fasterseg_tpu_torch.train import TrainSession
+    cfg = _train_config("student", seed)
+    loader = _loader(cfg, pool)
+    try:
+        x, y = _on_card(loader.make_batch(0, 0))
+    finally:
+        loader.close()
+    # as cli/train.py and the train phases run: autotuned convs (cuDNN's
+    # heuristic fp32 choice made a step several times slower, PERF.md)
+    torch.backends.cudnn.benchmark = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = None
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            mesh = init_mesh(0, 1, "nccl", DEVICE, os.path.join(tmp, "store"))
+            plain = TrainSession(cfg, ASSETS, device=DEVICE)
+            meshed = TrainSession(cfg, ASSETS, mesh=mesh)
+            worst, _, differ = _largest_diff(_state(plain), _state(meshed))
+            check(not differ, f"distributed (1): the sessions start apart "
+                              f"({len(differ)} tensors)")
+            m_plain = plain.step(x, y)
+            before = mesh.bytes_reduced
+            m_mesh = meshed.step(x, y)
+            bytes_step = mesh.bytes_reduced - before
+            a, b = _state(plain), _state(meshed)
+            for k in ("loss", "loss_kl", "inter", "union"):
+                a[k], b[k] = m_plain[k].cpu(), m_mesh[k].cpu()
+            worst, key, differ = _largest_diff(a, b)
+            times = {"no_mesh": [], "nccl_world_1": []}
+            for turn in range(DIST_TIMED):
+                for name in (("no_mesh", "nccl_world_1") if turn % 2 == 0
+                             else ("nccl_world_1", "no_mesh")):
+                    s = plain if name == "no_mesh" else meshed
+                    times[name].append(_timed_step(s, x, y))
+        finally:
+            if mesh is not None:
+                mesh.close()
+            torch.use_deterministic_algorithms(False)
+    check(not differ, f"distributed (1): the NCCL world-1 step differs from "
+                      f"the no-mesh step at {len(differ)} tensors, largest "
+                      f"|d| {worst} at {key}: the world-1 path must compute "
+                      f"the same arithmetic")
+    return {"model": "student (arch_1) + teacher (arch_0), full width",
+            "batch": "12x512x1024 fp32, deterministic algorithms",
+            "tensors_equal": len(a), "max_abs_diff": worst,
+            "bytes_all_reduced_per_step": bytes_step,
+            "step_ms": {k: {"median": statistics.median(v), "min": min(v),
+                            "max": max(v), "reps": len(v)}
+                        for k, v in times.items()},
+            "loss": float(m_mesh["loss"])}
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rank_float64_step(mesh, cfg, x, y) -> dict:
+    """Bar (2), on a rank: the float64 distill step of a TrainSession on the
+    mesh, on this rank's shard of (x, y); its state and its time."""
+    import torch
+    from fasterseg_tpu_torch.parallel import shard_batch
+    from fasterseg_tpu_torch.train import TrainSession
+    session = TrainSession(cfg, ASSETS, mesh=mesh)
+    session.model.double()
+    session.teacher.double()
+    xs, ys = (t.to(mesh.device) for t in shard_batch((x.double(), y), mesh))
+    before = mesh.bytes_reduced
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    m = session.step(xs, ys)
+    _sync(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    state = _state(session)
+    for k in ("loss", "loss_kl", "inter", "union"):
+        state[k] = m[k].cpu()
+    return {"state": state, "ms_host_clock": ms,
+            "bytes": mesh.bytes_reduced - before}
+
+
+def _rank_eval(mesh, seed: int, scenes) -> dict:
+    """Bar (3), on a rank (or alone with mesh None): the student's fp32
+    kernel path (seeded random weights, as eval_student's K32) through
+    Evaluator, the launch counts read around that run alone."""
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.core import DataConfig
+    from fasterseg_tpu_torch.eval import Evaluator
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            student_plan)
+    from fasterseg_tpu_torch.utils import init_random_
+    data = DataConfig()
+    plan = student_plan()
+    device = DEVICE if mesh is None else mesh.device
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), seed),
+                             dtype=torch.float32, device=device)
+    ev = Evaluator(scenes, plan.num_classes, data.image_mean, data.image_std,
+                   runner.logits, ignore_label=data.ignore_label,
+                   device=device, mesh=mesh)
+    _sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ev.run()
+    _sync(device)
+    return {"hist": res.hist, "launches": kernels.launch_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def _tiny_search_engine(seed: int, batch: int, device, mesh=None):
+    """The search phase's float64 card-vs-CPU engine: 5 layers, Fch 8, five
+    widths, teacher and student, a global batch of `batch` at 64x128,
+    priced by `_standin_ms`."""
+    from fasterseg_tpu_torch.core.config import (DataConfig,
+                                                 cityscapes_search_config)
+    from fasterseg_tpu_torch.latency import LatencyLUT
+    from fasterseg_tpu_torch.parallel import dryrun
+    cfg = cityscapes_search_config(seed=seed, layers=5, Fch=8, data=DataConfig(
+        gt_down_sampling=8, down_sampling=2, image_height=64,
+        image_width=128, batch_size=batch))
+    return dryrun.tiny_engine(cfg, device, mesh,
+                              lut=LatencyLUT(provider=_standin_ms))
+
+
+def _rank_search_step(mesh, seed: int) -> dict:
+    """Bar (4), on a rank: one arch step and one weight step of the tiny
+    engine on the mesh, on this rank's shard."""
+    from fasterseg_tpu_torch.parallel import dryrun
+    engine = _tiny_search_engine(seed, 4, mesh.device, mesh)
+    x, y = dryrun.global_batch(seed, 4, (64, 128), (8, 16))
+    return dryrun.search_step(engine, x, y, mesh)
+
+
+def _dist_ranks(mesh, seed, cfg64, x64, y64, scenes) -> dict:
+    """Bars (2)-(5) on one rank of the gloo mesh on cuda:0 (one spawn: a
+    rank takes ~10 s to reach the card); (5) is the dry run's rank body,
+    which holds its steps against one rank itself."""
+    import torch
+    from fasterseg_tpu_torch.parallel import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"float64_step": _rank_float64_step(mesh, cfg64, x64, y64),
+           "eval": _rank_eval(mesh, seed, scenes),
+           "search": _rank_search_step(mesh, seed)}
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.run_steps(mesh, seed)
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_distributed(seed: int, pool, eval_scenes) -> dict:
+    """Data parallelism on the card: (1) the full-width distill step on an
+    NCCL mesh of one rank against the session without a mesh; two gloo
+    ranks on cuda:0 for (2) the float64 student step (256x512, batch 4),
+    (3) Evaluator through the conv kernels over 5 scenes at 1024x2048 and
+    (4) the tiny search step in float64, each against one rank; (5) the
+    dry run's steps on the same two ranks."""
+    import numpy as np
+    import torch
+    from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.data.procgen import ProcCity
+    from fasterseg_tpu_torch.parallel import dryrun, launch
+    from fasterseg_tpu_torch.train import TrainSession
+    t0 = time.perf_counter()
+    row = {"phase": "distributed", "gpu": gpu_line()}
+    row["nccl_world_1"] = _nccl_world_of_one(seed, pool)
+
+    cfg64 = _train_config("student", seed, hw=(256, 512), batch=4)
+    loader = _loader(cfg64, pool)
+    try:
+        x64, y64 = (torch.from_numpy(a) for a in loader.make_batch(0, 0))
+    finally:
+        loader.close()
+    scenes = list(eval_scenes) + [
+        ProcCity(length=DIST_EVAL_SCENES, hw=HW, seed=seed, split="val")[i]
+        for i in range(len(eval_scenes), DIST_EVAL_SCENES)]
+    t1 = time.perf_counter()
+    ranks = launch(_dist_ranks, DIST_RANKS, "gloo",
+                   [DEVICE + ":0"] * DIST_RANKS,
+                   args=(seed, cfg64, x64, y64, scenes))
+    launch_s = time.perf_counter() - t1
+
+    # (2) the float64 step against one rank
+    session = TrainSession(cfg64, ASSETS, device=DEVICE)
+    session.model.double()
+    session.teacher.double()
+    _sync(DEVICE)
+    t1 = time.perf_counter()
+    m = session.step(x64.double().to(DEVICE), y64.to(DEVICE))
+    _sync(DEVICE)
+    one_ms = (time.perf_counter() - t1) * 1e3
+    want = _state(session)
+    for k in ("loss", "loss_kl", "inter", "union"):
+        want[k] = m[k].cpu()
+    del session
+    got = [{"state": r["float64_step"]["state"], "metrics": {}}
+           for r in ranks]
+    cmp = [dryrun.compare(g, {"state": want, "metrics": {}}) for g in got]
+    same = not _largest_diff(got[0]["state"], got[1]["state"])[2]
+    check(all(not c["over"] for c in cmp) and same,
+          f"distributed (2): the two-rank float64 step is off the one-rank "
+          f"step at {[c['over'][:3] for c in cmp]}, worst "
+          f"{[c['max_abs_err'] for c in cmp]}; ranks equal: {same}")
+    row["gloo_float64_step"] = {
+        "model": "student + teacher, full width", "batch": "4x256x512 float64",
+        "tensors": len(want), "max_abs_err": max(c["max_abs_err"]
+                                                 for c in cmp),
+        "ranks_equal": same,
+        "rank_step_ms_host_clock": [r["float64_step"]["ms_host_clock"]
+                                    for r in ranks],
+        "one_rank_step_ms_host_clock": one_ms,
+        "bytes_all_reduced_per_step": ranks[0]["float64_step"]["bytes"]}
+
+    # (3) the evaluator through the kernels against one rank
+    data_one = _rank_eval(None, seed, scenes)
+    hists = [r["eval"]["hist"] for r in ranks]
+    identical = all(np.array_equal(h, data_one["hist"]) for h in hists)
+    d = max(_hist_d(h, data_one["hist"]) for h in hists)
+    repeat = _rank_eval(None, seed, scenes)
+    repeatable = np.array_equal(repeat["hist"], data_one["hist"])
+    for name in ("conv3x3_bn_relu_s1", "conv3x3_bn_relu_s2"):
+        counts = [r["eval"]["launches"][name] for r in ranks]
+        check(all(c > 0 for c in counts)
+              and sum(counts) == data_one["launches"][name],
+              f"distributed (3): {name} launches {counts} on the ranks, "
+              f"{data_one['launches'][name]} on one")
+    if repeatable:
+        check(identical, f"distributed (3): the ranks' hist is {d} from the "
+                         f"one-rank kernel run, which repeats bit for bit")
+    else:
+        check(d <= EVAL_DIFF_FP32,
+              f"distributed (3): d = {d} > {EVAL_DIFF_FP32} (the one-rank "
+              f"kernel run does not repeat bit for bit)")
+    row["gloo_eval"] = {
+        "images": f"{DIST_EVAL_SCENES}x{HW[0]}x{HW[1]}", "forward": "K32",
+        "hist_identical": identical, "d": d,
+        "one_rank_repeats_bit_for_bit": repeatable,
+        "launches_per_rank": [r["eval"]["launches"] for r in ranks],
+        "launches_one_rank": data_one["launches"],
+        "seconds_per_rank": [r["eval"]["seconds"] for r in ranks],
+        "seconds_one_rank": data_one["seconds"]}
+
+    # (4) the tiny search step against one rank
+    x, y = dryrun.global_batch(seed, 4, (64, 128), (8, 16))
+    want = dryrun.search_step(_tiny_search_engine(seed, 4, DEVICE), x, y)
+    cmp = [dryrun.compare(r["search"], want, exact_keys=("loss_latency",))
+           for r in ranks]
+    same = not _largest_diff(ranks[0]["search"]["state"],
+                             ranks[1]["search"]["state"])[2]
+    check(all(not c["over"] for c in cmp) and same,
+          f"distributed (4): the two-rank search step is off one rank at "
+          f"{[c['over'][:3] for c in cmp]}; ranks equal: {same}")
+    row["gloo_search_step"] = {
+        "size": "5 layers, Fch 8, 4x64x128, float64",
+        "tensors": len(want["state"]),
+        "max_abs_err": max(c["max_abs_err"] for c in cmp),
+        "ranks_equal": same}
+    row["gloo_launch_s"] = launch_s
+
+    # (5) the dry run's steps at two ranks on the card (run_steps raised on
+    # a rank whose step missed the one-rank step's bars)
+    row["dryrun"] = {"ranks": DIST_RANKS, "device": DEVICE + ":0",
+                     "seconds": ranks[0]["dryrun_s"],
+                     **{name: {k: ranks[0]["dryrun"][name][k] for k in
+                               ("loss", "max_abs_err", "bytes_all_reduced",
+                                "same_on_ranks")}
+                        for name in ("distill", "search")}}
+    kernels.reset_launch_counts()
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 # -------------------------------------------------------------------- search
 
 
@@ -1361,15 +1705,10 @@ def _search_card_vs_cpu(seed: int, pool) -> dict:
     same draws, on the card and on the CPU: every tensor of the supernet
     and every arch tensor within atol 1e-10 + rtol 1e-8."""
     import torch
-    from fasterseg_tpu_torch.core.config import (DataConfig,
-                                                 cityscapes_search_config)
+    from fasterseg_tpu_torch.core.config import DataConfig
     from fasterseg_tpu_torch.data import TrainLoader, TrainPre
-    from fasterseg_tpu_torch.latency import LatencyLUT
-    from fasterseg_tpu_torch.search import SearchEngine, draw_noise, to_device
-    cfg = cityscapes_search_config(seed=seed, layers=5, Fch=8, data=DataConfig(
-        gt_down_sampling=8, down_sampling=2, image_height=64,
-        image_width=128, batch_size=2))
-    d = cfg.data
+    from fasterseg_tpu_torch.search import draw_noise, to_device
+    d = DataConfig()
     loader = TrainLoader(pool, TrainPre(d.image_mean, d.image_std, (64, 128),
                                         d.train_scale_array, 8,
                                         d.ignore_label), 2, seed=seed)
@@ -1380,12 +1719,7 @@ def _search_card_vs_cpu(seed: int, pool) -> dict:
     noise = None
     for name, device in (("cpu", "cpu"), ("card", DEVICE)):
         t0 = time.perf_counter()
-        engine = SearchEngine(cfg, lut=LatencyLUT(provider=_standin_ms),
-                              device=device)
-        engine.model.double()
-        for _, t in _arch_tensors(engine):
-            t.data = t.data.double()
-        engine.tables = {k: v.double() for k, v in engine.tables.items()}
+        engine = _tiny_search_engine(seed, 2, device)
         if noise is None:     # drawn once, on the host, for both devices
             fw = engine.forwards(False)
             noise = (engine.draw_noise(fw, gen), {
@@ -2146,24 +2480,24 @@ def phase_study(seed: int, epochs: int) -> dict:
         missed.append(f"bf16_trained: the bf16 kernel class map agrees with "
                       f"plain fp32 on {got} % < {AGREE_BF16_TRAINED} %")
     # The agreement half of the JAX acceptance measures the quantizer (the
-    # JAX package's, bit for bit) on these weights as much as the port. A
-    # miss is held unless the same acceptance in the JAX package's own
-    # arithmetic (`jax_arithmetic`: the plain bf16 nets, weights rounded to
-    # bf16) misses it on the same weights too; then it is recorded here,
-    # with both readings, and does not fail the run.
+    # JAX package's, bit for bit) on these weights as much as the port: where
+    # the JAX package's own arithmetic misses its floor on the same weights,
+    # the kernel path is held instead to no more than 0.05 pp below that
+    # arithmetic's agreement (`int8_check.agreement_bar`); the floor's miss
+    # is then recorded here with both readings.
     recorded = []
     acc, jax_own = ic.acceptance(int8), ic.acceptance(int8["jax_arithmetic"])
-    if not acc["agreement_met"]:
-        what = (f"int8: int8 vs bf16 class maps agree on "
-                f"{int8['classmap_agreement_pct']} % < "
-                f"{acc['agreement_floor_pct']} %")
-        if jax_own["agreement_met"]:
-            missed.append(what)
-        else:
-            recorded.append(
-                f"{what}; in the JAX package's arithmetic "
-                f"{int8['jax_arithmetic']['classmap_agreement_pct']} % < "
-                f"{jax_own['agreement_floor_pct']} %, missed there too")
+    bar = ic.agreement_bar(int8)
+    what = (f"int8: int8 vs bf16 class maps agree on "
+            f"{int8['classmap_agreement_pct']} %")
+    if not bar["met"]:
+        missed.append(f"{what} < {bar['floor_pct']} % ({bar['rule']})")
+    elif not acc["agreement_met"]:
+        recorded.append(
+            f"{what} < {acc['agreement_floor_pct']} %; in the JAX package's "
+            f"arithmetic {int8['jax_arithmetic']['classmap_agreement_pct']} "
+            f"% < {jax_own['agreement_floor_pct']} %, missed there too; held "
+            f"instead to >= {bar['floor_pct']} %: met")
     if not acc["delta_met"]:
         missed.append(f"int8: mIoU delta {int8['mIoU_delta_points']} "
                       f"points, not < 0.2")
@@ -2218,6 +2552,9 @@ def main() -> int:
     ap.add_argument("--study-only", action="store_true",
                     help="only build and run the miou, bf16_trained and "
                          "int8 phases")
+    ap.add_argument("--distributed-only", action="store_true",
+                    help="only build, render the scenes and run the "
+                         "distributed phase")
     ap.add_argument("--detail-dir", default=None, metavar="DIR",
                     help="write the latency phase's long readings (every "
                          "conv shape, the swept table, the CLIs' output) "
@@ -2246,6 +2583,15 @@ def main() -> int:
         phase_search(args.seed, [scenes[i] for i in range(2)], profile=True)
         return 0
 
+    if args.distributed_only:
+        from fasterseg_tpu_torch.data.procgen import ProcCity
+        phase_build()
+        scenes = ProcCity(length=EVAL_IMAGES, hw=HW, seed=args.seed,
+                          split="val")
+        pool, _ = _train_pool(args.seed)
+        phase_distributed(args.seed, pool,
+                          [scenes[i] for i in range(EVAL_IMAGES)])
+        return 0
     if args.study_only:
         phase_build()
         phase_study(args.seed, args.miou_epochs)
@@ -2271,6 +2617,7 @@ def main() -> int:
         phase_train_teacher(args.seed, pool, tmp)
         phase_train_student(args.seed, pool,
                             os.path.join(tmp, "weights0_ckpt"), eval_scenes)
+    dist = phase_distributed(args.seed, pool, eval_scenes)
     del pool
     search = phase_search(args.seed, eval_scenes)
     latency = phase_latency(args.seed, student["graph_classmap_ms"],
@@ -2304,6 +2651,8 @@ def main() -> int:
             "launches_bf16_trained":
                 study["bf16_trained"]["study"]["launches"][name],
             "launches_int8": study["int8"]["launches"]["int8"][name],
+            "launches_distributed_eval_per_rank": [
+                r[name] for r in dist["gloo_eval"]["launches_per_rank"]],
             "shape": c["shape"], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

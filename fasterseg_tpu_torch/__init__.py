@@ -4,7 +4,8 @@ PyTorch and CUDA.
 A port of the JAX package `fasterseg_tpu` for NVIDIA Hopper (H100): genotype
 decode and planning (`core`), the derived network (`models`), its serving
 runner, whole-image evaluation (`eval`), teacher/student training (`train`,
-`data`, `utils.checkpoint`, `cli`), and hand-written CUDA kernels for the
+`data`, `utils.checkpoint`, `cli`), data parallelism over
+`torch.distributed` (`parallel`), and hand-written CUDA kernels for the
 three Pallas kernels of the JAX package (`kernels`, sources in `csrc/`). It
 imports neither JAX nor
 the JAX package. Entry points run on CUDA unless the caller passes

@@ -8,7 +8,10 @@ path, train/train.py:155-176 with C.is_eval=True):
 
 The forward is the fp32 `InferenceRunner` of the checkpoint's weights, so
 on CUDA (the default) it runs the hand-written conv kernels. Reading the
-file-list dataset's PNGs needs cv2.
+file-list dataset's PNGs needs cv2. `--devices N` shards the images over N
+ranks (NCCL on cuda:0..N-1, more ranks than cards raise; gloo with `--device
+cpu`) and reduces the counts; `--spatial` (each image split over H) raises, as it is not
+ported.
 """
 
 from __future__ import annotations
@@ -34,8 +37,28 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="evaluate over N ranks, the images sharded")
+    p.add_argument("--spatial", action="store_true",
+                   help="partition each image over H across the ranks "
+                        "(not ported: raises)")
     args = p.parse_args(argv)
 
+    from ..parallel import SPATIAL_NOT_PORTED, launch, rank_devices
+    if args.spatial:
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    if args.devices:
+        if args.show_dir:
+            p.error("--show-dir writes its panels in one process")
+        return launch(_run, args.devices,
+                      *rank_devices(args.devices, args.device),
+                      args=(args,))[0]
+    return _run(None, args)
+
+
+def _run(mesh, args):
+    """The evaluation on this rank (`mesh`) or alone (None); returns the
+    EvalResult."""
     from ..core.config import (cityscapes_student_config,
                                cityscapes_teacher_config)
     from ..data import Cityscapes, DataSetting
@@ -50,7 +73,8 @@ def main(argv=None):
                              eval_flip=args.flip)
     cfg = dataclasses.replace(cfg, eval=ev, is_eval=True)
 
-    session = TrainSession(cfg, args.arch_dir, device=args.device)
+    session = TrainSession(cfg, args.arch_dir, device=args.device,
+                           mesh=mesh)
     session.load_weights(args.ckpt)
     setting = DataSetting(
         img_root=args.data_root, gt_root=args.data_root,
@@ -58,8 +82,9 @@ def main(argv=None):
         eval_source=os.path.join(args.data_root, cfg.data.eval_source))
     val = Cityscapes(setting, "val")
     res = session.evaluate(val, max_items=args.max_items)
-    print(print_iou(res.iou_per_class, res.pixel_acc,
-                    Cityscapes.class_names))
+    if mesh is None or mesh.rank == 0:
+        print(print_iou(res.iou_per_class, res.pixel_acc,
+                        Cityscapes.class_names))
 
     if args.show_dir:
         import cv2

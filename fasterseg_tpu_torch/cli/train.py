@@ -12,7 +12,9 @@ Counterpart of the JAX package's cli/train.py (the reference's
       --arch-dir tests/assets --epochs 1 --niters 2 --height 64 --width 128
 
 Runs on CUDA unless `--device cpu`, with cuDNN autotuning its convs
-(`torch.backends.cudnn.benchmark`).
+(`torch.backends.cudnn.benchmark`). `--devices N` trains data-parallel on N
+ranks (`parallel.launch`): NCCL on cuda:0..N-1 (more ranks than cards
+raise) or gloo with `--device cpu`; the global batch must divide by N.
 """
 
 from __future__ import annotations
@@ -52,8 +54,31 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="data-parallel over N ranks (parameters replicated, "
+                        "each global batch sharded); the global batch must "
+                        "divide by N")
     args = p.parse_args(argv)
+    if args.is_test and not args.data_root:
+        p.error("--test needs --data-root")
+    if args.is_test and args.devices:
+        p.error("--test writes its predictions in one process")
 
+    from ..parallel import launch, rank_devices
+    from ..utils.logging import create_exp_dir
+    ranks = rank_devices(args.devices, args.device) if args.devices else None
+    save_dir = args.resume or create_exp_dir(args.save,
+                                             f"train-{args.mode}")
+    if ranks is None:
+        return _run(args, save_dir)
+    launch(_run_rank, args.devices, *ranks, args=(args, save_dir))
+
+
+def _run_rank(mesh, args, save_dir) -> None:
+    _run(args, save_dir, mesh)
+
+
+def _run(args, save_dir: str, mesh=None):
     import torch
     # cuDNN's heuristic choice for fp32 convs without TF32 (FFT) made a
     # student step at batch 12, 512x1024 6.5x slower than the autotuned one
@@ -64,7 +89,7 @@ def main(argv=None):
                                cityscapes_teacher_config)
     from ..data import BDD, CamVid, Cityscapes, DataSetting
     from ..train import TrainSession, run_train, write_test_predictions
-    from ..utils.logging import create_exp_dir, get_logger
+    from ..utils.logging import get_logger
 
     if args.dataset == "proccity":
         from ..data.procgen import make_dataset_cls
@@ -97,10 +122,11 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, data=data, is_eval=args.is_eval,
                               is_test=args.is_test)
 
-    save_dir = args.resume or create_exp_dir(args.save,
-                                             f"train-{args.mode}")
-    logger = get_logger(log_file=os.path.join(save_dir, "log.txt"))
+    logger = get_logger(log_file=os.path.join(save_dir, "log.txt")
+                        if mesh is None or mesh.rank == 0 else None)
     logger.info("config: %s", cfg)
+    if mesh is not None:
+        logger.info("%s", mesh)
 
     setting = val_dataset = None
     if args.data_root:
@@ -113,8 +139,6 @@ def main(argv=None):
         val_dataset = dataset_cls(setting, "val")
 
     if args.is_test:
-        if setting is None:
-            p.error("--test needs --data-root")
         session = TrainSession(cfg, args.arch_dir, device=args.device)
         if args.eval_ckpt:
             session.load_weights(args.eval_ckpt)
@@ -129,7 +153,7 @@ def main(argv=None):
                      epochs=args.epochs, niters=args.niters,
                      save_dir=save_dir, teacher_ckpt=args.teacher_ckpt,
                      resume=bool(args.resume), dataset_cls=dataset_cls,
-                     device=args.device)
+                     device=args.device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -12,12 +12,14 @@ Runs on CUDA unless `--device cpu`, with cuDNN autotuning its convs. The
 latency LUT is the reference's own table (1080Ti, TensorRT) unless `--lut`
 names another (for example the H100 table,
 fasterseg_tpu_torch/latency/h100_lut.json); on the card, keys missing from
-it are measured through the kernels (latency/measure.py) and saved into it.
+it are measured through the kernels (latency/measure.py) and saved into it
+(not under `--devices`, where the table must hold every key).
 The student's FPS band is the reference's [155, 175] (`--fps-band ref`, the
 default), the reference's relative band around the shipped student's
 estimate on the LUT in use (`auto`, latency/derived.py `fps_band`), or an
-explicit MIN,MAX. Not ported yet: `--devices` (data-parallel search) and
-`--bf16`.
+explicit MIN,MAX. `--devices N` searches data-parallel on N ranks: NCCL on
+cuda:0..N-1 (more ranks than cards raise) or gloo with `--device cpu`; the
+global batch must divide by N. Not ported yet: `--bf16`.
 """
 
 from __future__ import annotations
@@ -59,8 +61,27 @@ def main(argv=None):
                         "the shipped student; MIN,MAX sets it")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="data-parallel over N ranks (parameters replicated, "
+                        "each global batch sharded); the global batch must "
+                        "divide by N")
     args = p.parse_args(argv)
 
+    from ..parallel import launch, rank_devices
+    from ..utils.logging import create_exp_dir
+    ranks = rank_devices(args.devices, args.device) if args.devices else None
+    save_dir = args.resume or create_exp_dir(
+        args.save, "pretrain" if args.pretrain else "search")
+    if ranks is None:
+        return _run(args, save_dir)
+    launch(_run_rank, args.devices, *ranks, args=(args, save_dir))
+
+
+def _run_rank(mesh, args, save_dir) -> None:
+    _run(args, save_dir, mesh)
+
+
+def _run(args, save_dir: str, mesh=None):
     import torch
     torch.backends.cudnn.benchmark = True
 
@@ -71,13 +92,15 @@ def main(argv=None):
     from ..models import student_plan
     from ..models.infer import resolve_device
     from ..search import run_search
-    from ..utils.logging import create_exp_dir, get_logger
+    from ..utils.logging import get_logger
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     lut = None
     if args.lut:
         provider = None
-        if device.type == "cuda":
+        # ranks would each measure a missing key anew and price the archs
+        # apart: under --devices the table must hold every key
+        if device.type == "cuda" and mesh is None:
             from ..latency.measure import measured_provider
             provider = measured_provider(device=device)
         lut = LatencyLUT(args.lut, provider=provider)
@@ -112,9 +135,8 @@ def main(argv=None):
         overrides.update(fps_min=(0.0, lo), fps_max=(0.0, hi))
     cfg = dataclasses.replace(cfg, **overrides)
 
-    save_dir = args.resume or create_exp_dir(
-        args.save, "pretrain" if args.pretrain else "search")
-    logger = get_logger(log_file=os.path.join(save_dir, "log.txt"))
+    logger = get_logger(log_file=os.path.join(save_dir, "log.txt")
+                        if mesh is None or mesh.rank == 0 else None)
     logger.info("config: %s", cfg)
     logger.info("student FPS band: [%.1f, %.1f]", cfg.fps_min[-1],
                 cfg.fps_max[-1])
@@ -130,7 +152,8 @@ def main(argv=None):
 
     engine = run_search(cfg, val_dataset=val_dataset, epochs=args.epochs,
                         niters=args.niters, save_dir=save_dir, lut=lut,
-                        resume=bool(args.resume), device=device)
+                        resume=bool(args.resume), device=device,
+                        mesh=mesh)
     logger.info("done; artifacts in %s", save_dir)
     return engine
 

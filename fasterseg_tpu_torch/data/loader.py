@@ -11,6 +11,11 @@ result is placed by its slot index, so a batch is a pure function of its
 position whatever the pool's schedule, and `seek` resumes a run exactly;
 the port's batches equal the JAX package's for a seed.
 
+Under data parallelism a rank's loader makes only its shard of each global
+batch (`shard=(rank, world)`): slots [rank * b, (rank + 1) * b) with
+b = batch_size / world. The ranks' shards, concatenated, are the one-rank
+batch bit for bit, and no rank prepares another's images.
+
 `get_train_loader` keeps the reference's API shape, including the `portion`
 split that carves disjoint halves for the weight/arch bi-level optimization
 (train_search.py:109-112).
@@ -30,13 +35,22 @@ from .preprocess import TrainPre
 
 
 class TrainLoader:
-    """Infinite iterator of (images NHWC float32, labels NHW int32)."""
+    """Infinite iterator of (images NHWC float32, labels NHW int32):
+    `batch_size` is the global batch; with `shard=(rank, world)` the loader
+    yields this rank's rows of it."""
 
     def __init__(self, dataset, preprocess: TrainPre, batch_size: int,
-                 seed: int = 0, shuffle: bool = True, prefetch: int = 2):
+                 seed: int = 0, shuffle: bool = True, prefetch: int = 2,
+                 shard: Tuple[int, int] = (0, 1)):
+        rank, world = shard
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"shard {shard} of a global batch of "
+                             f"{batch_size}")
         self.dataset = dataset
         self.preprocess = preprocess
         self.batch_size = batch_size
+        per = batch_size // world
+        self.slots = range(rank * per, (rank + 1) * per)
         self.seed = seed
         self.shuffle = shuffle
         self.prefetch = prefetch
@@ -45,7 +59,7 @@ class TrainLoader:
         self._thread: Optional[threading.Thread] = None
         self._start_epoch = 0
         # slot workers: one a slot, at most one a core
-        self.pool_size = max(1, min(batch_size, os.cpu_count() or 1))
+        self.pool_size = max(1, min(len(self.slots), os.cpu_count() or 1))
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
 
@@ -75,8 +89,8 @@ class TrainLoader:
 
     def make_batch(self, epoch: int, step: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """The batch at (epoch, step), computed here (no prefetch), its
-        slots prepared at once on the slot pool."""
+        """This loader's rows of the batch at (epoch, step), computed here
+        (no prefetch), its slots prepared at once on the slot pool."""
         n = len(self.dataset)
         order_rng = np.random.default_rng((self.seed, epoch))
         order = (order_rng.permutation(n) if self.shuffle
@@ -89,7 +103,7 @@ class TrainLoader:
             return self.preprocess(rng, sample["data"], sample["label"])
 
         # map yields in slot order whatever order the slots finish in
-        out = list(self._slot_pool().map(slot_sample, range(self.batch_size)))
+        out = list(self._slot_pool().map(slot_sample, self.slots))
         return (np.stack([img for img, _ in out]),
                 np.stack([gt for _, gt in out]))
 
@@ -139,14 +153,16 @@ class TrainLoader:
 
 def get_train_loader(config, dataset_cls, portion: Optional[float] = None,
                      seed: Optional[int] = None, test: bool = False,
-                     index_select=None) -> TrainLoader:
+                     index_select=None, shard: Tuple[int, int] = (0, 1)
+                     ) -> TrainLoader:
     """Reference-shaped constructor (search/dataloader.py:34-57,
     train/dataloader.py:34-47): dataset + TrainPre + loader.
 
     `config` is a core.config SearchConfig/TrainConfig; `portion` carves
     the head (+) or tail (-) fraction of the file list; `index_select`
     reorders it first (the search driver passes one shared permutation so
-    the two portions form a balanced disjoint split)."""
+    the two portions form a balanced disjoint split); `shard` is this
+    rank's (rank, world)."""
     from .datasets import DataSetting, SyntheticDataset
 
     d = config.data
@@ -172,4 +188,4 @@ def get_train_loader(config, dataset_cls, portion: Optional[float] = None,
                               index_select=index_select)
     return TrainLoader(dataset, pre, d.batch_size,
                        seed=seed if seed is not None else getattr(
-                           config, "seed", 0))
+                           config, "seed", 0), shard=shard)

@@ -15,6 +15,14 @@ the reference does. Sliding-window eval accumulates crop probabilities on the
 host. The forward is any callable on NHWC fp32 tensors on the evaluator's
 device, e.g. `models.InferenceRunner(...).logits` (the hand-written kernels)
 or a plain `DerivedNet`; the model holds its own weights.
+
+With `mesh` (a `parallel.Mesh`) the items are sharded over the ranks as the
+JAX package shards its batches: of each global batch of batch_size x world
+items, rank r takes slots [r * batch_size, (r + 1) * batch_size), still
+`batch_size` images a forward; the tail is padded with repeats whose labels
+are all ignore, and a rank whose slots are all padding runs no forward (it
+would count nothing). hist, correct and labeled are then summed over ranks,
+so every rank returns the one-rank result.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from ..data.preprocess import _resize, eval_preprocess, pad_image_to_shape
 from ..models.infer import resolve_device
 from ..ops.resize import resize_bilinear_halfpixel
+from ..parallel.mesh import SPATIAL_NOT_PORTED
 from .metrics import compute_score, hist_stats
 
 
@@ -52,14 +61,22 @@ def probabilities(logits: torch.Tensor) -> torch.Tensor:
 class Evaluator:
     """forward_fn(images NHWC fp32 on `device`) -> logits (N, H, W, C) at
     the input resolution. `device` defaults to CUDA and raises where there
-    is none; tests pass "cpu"."""
+    is none; tests pass "cpu". `mesh` shards the items over ranks (the
+    forward runs on the mesh's device); `spatial` (H-partitioned images)
+    raises, as it is not ported."""
 
     def __init__(self, dataset, num_classes: int, image_mean, image_std,
                  forward_fn: Callable[[torch.Tensor], torch.Tensor],
                  eval_scales: Sequence[float] = (1.0,),
                  eval_flip: bool = False, batch_size: int = 1,
                  ignore_label: int = 255,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh=None, spatial: bool = False):
+        if spatial:
+            raise NotImplementedError(SPATIAL_NOT_PORTED)
+        if mesh is not None:
+            device = mesh.device
+        self.mesh = mesh
         self.dataset = dataset
         self.num_classes = num_classes
         self.image_mean = image_mean
@@ -121,9 +138,12 @@ class Evaluator:
     def run(self, max_items: Optional[int] = None) -> EvalResult:
         """Whole-image eval over the dataset, `batch_size` images a forward;
         the tail batch is padded with repeats whose labels are all
-        `ignore_label`, so they count nothing."""
+        `ignore_label`, so they count nothing. With a mesh, this rank's
+        share of the items, the counts summed over ranks."""
         n_total = min(len(self.dataset), max_items or len(self.dataset))
         batch = self.batch_size
+        rank, world = ((0, 1) if self.mesh is None
+                       else (self.mesh.rank, self.mesh.world))
         n = self.num_classes
         hist = torch.zeros((n, n), dtype=torch.int64, device=self.device)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -131,7 +151,7 @@ class Evaluator:
         # the reference default, a single scale, runs on the device from the
         # uint8 images on; multi-scale resizes its inputs on the host
         fused = self.eval_scales == (1.0,)
-        for i in range(0, n_total, batch):
+        for i in range(rank * batch, n_total, batch * world):
             idxs = list(range(i, min(i + batch, n_total)))
             n_real = len(idxs)
             idxs += [idxs[-1]] * (batch - n_real)
@@ -149,6 +169,11 @@ class Evaluator:
             hist += h
             correct += c
             labeled += l
+        if self.mesh is not None:
+            counts = self.mesh.all_reduce_(
+                torch.cat([hist.reshape(-1), correct[None], labeled[None]]))
+            hist = counts[:n * n].reshape(n, n)
+            correct, labeled = counts[n * n], counts[n * n + 1]
         hist = hist.cpu().numpy()
         correct, labeled = int(correct), int(labeled)
         iou, mean_iu, _, _ = compute_score(hist, correct, labeled)

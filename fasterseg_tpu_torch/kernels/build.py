@@ -11,11 +11,16 @@ anew and an unchanged one is loaded from `fasterseg_tpu_torch/build/`.
 `build_all` starts one nvcc per source at once and waits for all of them.
 nvcc's output (with the -Xptxas=-v register and shared-memory report) is kept
 beside each library as `<name>-<hash>.log`. A failed build or load raises.
+Builds hold a file lock on `build/.lock` as well as a thread lock, so
+processes that reach first use together (the ranks of a data-parallel run)
+build each library once; the OS releases the lock of a process that dies.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -74,13 +79,25 @@ def _build_one(nvcc: str, name: str) -> Tuple[float, Optional[str]]:
     return seconds, None
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This process's exclusive hold on the build directory."""
+    os.makedirs(BUILD, exist_ok=True)
+    with open(os.path.join(BUILD, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Build every missing library, one nvcc per source, all at once;
-    returns the seconds each build took (0.0 for one already built)."""
-    os.makedirs(BUILD, exist_ok=True)
+    returns the seconds each build took (0.0 for one already built, here or
+    by another process while this one waited for the lock)."""
     nvcc = nvcc_path()
     names = list(names)
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    with _build_lock(), ThreadPoolExecutor(max_workers=len(names)) as pool:
         results = dict(zip(names, pool.map(lambda n: _build_one(nvcc, n),
                                            names)))
     failed = [err for _, err in results.values() if err]

@@ -270,12 +270,14 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
                 _COUNTERS, dtype=torch.int32, device=x.device)
     y = torch.empty((1, ho, wo, co), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _kernel()[0](
-        x.data_ptr(), ptr(x2), w.data_ptr(),
-        cw.packed.data_ptr() if tensor_cores else None, scale.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), ptr(scratch), ptr(counters), H, W, ci1,
-        ci2, co, stride, int(relu), int(bf16), ck, bn,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the launch goes to the current device: make it x's
+    with torch.cuda.device(x.device):
+        rc = _kernel()[0](
+            x.data_ptr(), ptr(x2), w.data_ptr(),
+            cw.packed.data_ptr() if tensor_cores else None, scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), ptr(scratch), ptr(counters), H, W,
+            ci1, ci2, co, stride, int(relu), int(bf16), ck, bn,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3_bn_relu launch failed: CUDA error {rc}")
     launches[stride] += 1

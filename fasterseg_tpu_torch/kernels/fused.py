@@ -144,11 +144,14 @@ def upsample8_argmax(p8: torch.Tensor,
     ylo, yhi, ty = _coords(h8, H, _TILE_H, p8.device)
     xlo, xhi, tx = _coords(w8, W, _TILE_W, p8.device)
     out = torch.empty((1, H, W), dtype=torch.int32, device=p8.device)
-    rc = _kernel()(p8.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
-                   ty.data_ptr(), xlo.data_ptr(), xhi.data_ptr(),
-                   tx.data_ptr(), out.data_ptr(), h8, w8, c, H, W,
-                   int(p8.dtype == torch.bfloat16), *_plan(h8, w8, c, H, W),
-                   torch.cuda.current_stream(p8.device).cuda_stream)
+    # the launch goes to the current device: make it p8's
+    with torch.cuda.device(p8.device):
+        rc = _kernel()(p8.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
+                       ty.data_ptr(), xlo.data_ptr(), xhi.data_ptr(),
+                       tx.data_ptr(), out.data_ptr(), h8, w8, c, H, W,
+                       int(p8.dtype == torch.bfloat16),
+                       *_plan(h8, w8, c, H, W),
+                       torch.cuda.current_stream(p8.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upsample8_argmax launch failed: CUDA error {rc}")
     launches["upsample8_argmax"] += 1

@@ -37,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .conv import Conv, upcast
+from .conv import Conv, batch_moments, upcast
 from .resize import downsample_half, resize_bilinear
 
 
@@ -140,7 +140,9 @@ class SlimBatchNorm(nn.Module):
     last axis of an NHWC tensor: `weight`, `bias`, `running_mean` and
     `running_var` are (num_widths, features). Train mode normalises with the
     batch mean and biased variance and moves the selected row towards the
-    batch mean and the unbiased variance; eval mode uses the selected row."""
+    batch mean and the unbiased variance; eval mode uses the selected row.
+    With `mesh` set (`parallel.sync_batchnorm_`) the batch is the global
+    one, and so is the count of the unbiased factor."""
 
     def __init__(self, features: int, num_widths: int = 1,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -151,14 +153,14 @@ class SlimBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_widths, features))
         self.register_buffer("running_mean", torch.zeros(num_widths, features))
         self.register_buffer("running_var", torch.ones(num_widths, features))
+        self.mesh = None
 
     def forward(self, x, width_idx):
         xf = upcast(x)
         if self.training:
-            var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+            mean, var, n = batch_moments(xf, self.mesh)
             if not _UPDATES.frozen:
-                self._update(width_idx, mean.detach(), var.detach(),
-                             x.shape[0] * x.shape[1] * x.shape[2])
+                self._update(width_idx, mean.detach(), var.detach(), n)
         else:
             mean = row(self.running_mean, width_idx)
             var = row(self.running_var, width_idx)

@@ -25,9 +25,16 @@ sandwich on the last arch. Random draws come from a torch.Generator seeded
 by (seed + 1, update index), made on the host and copied to the device, so
 a step is a pure function of its position and both devices draw alike.
 
-Runs on CUDA unless the caller passes device="cpu". Not ported yet:
-data-parallel search (`mesh`) and genotype plots (`plot_genotypes`); both
-raise.
+Runs on CUDA unless the caller passes device="cpu". With `mesh` (a
+`parallel.Mesh`, one engine a rank) search is data-parallel as the JAX
+package's SPMD steps are: weights and arch parameters replicated from rank 0,
+each rank stepping on its shard of the global batch with the sync BN rows and
+global losses, both steps' gradients sum-reduced in one flat bucket (the
+weight step's clip after the reduction; the latency term, a function of the
+replicated arch parameters alone, added on rank 0 only, so its gradient
+counts once), the same host draws on every rank, validation sharded over the
+items with its counts reduced, and checkpoints written by rank 0. Not ported
+yet: genotype plots (`plot_genotypes`) raise.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..latency import (LatencyLUT, build_supernet_tables, derived_latency_ms,
                        reference_lut, stem_latency_ms)
 from ..models.infer import resolve_device
 from ..models.supernet import ArchParamSet, Supernet, init_supernet
+from ..parallel.mesh import replicate, sync_batchnorm_
 from ..train.loop import make_optimizer, set_learning_rate
 from ..train.loss import ohem_cross_entropy
 from ..utils.checkpoint import load, partial_load, save, save_arch
@@ -113,20 +121,18 @@ def to_device(tree, device: torch.device):
 class SearchEngine:
     """The supernet, both archs' parameters, both optimizers, the latency
     tables and the controller, on `device` (CUDA by default; tests pass
-    "cpu")."""
+    "cpu"), or with `mesh` on the mesh's device as one rank of a
+    data-parallel search."""
 
     def __init__(self, config: SearchConfig, lut: Optional[LatencyLUT] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel search is not ported yet (ROADMAP Queue 1 "
-                "item 6)")
         if config.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {config.compute_dtype!r}: the port's "
                 "supernet computes in float32")
         self.config = c = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.wml = tuple(c.width_mult_list)
         self.nw = len(self.wml)
         self.prun_modes = tuple(c.prun_modes)
@@ -138,10 +144,13 @@ class SearchEngine:
             layers=c.layers, num_classes=c.num_classes, Fch=c.Fch,
             width_mult_list=self.wml, stem_head_width=c.stem_head_width,
             remat=c.supernet_remat), c.seed).to(self.device)
+        replicate(sync_batchnorm_(self.model, mesh), mesh)
         self.arch_params: Dict[int, ArchParamSet] = {
             i: ArchParamSet.create(c.layers, num_widths=nwi,
                                    device=self.device)
             for i, nwi in enumerate(self.num_widths_per_arch)}
+        if mesh is not None:
+            mesh.broadcast_(self._arch_tensors())
 
         # weight optimizer (train_search.py:83-101): optax's
         # chain(add_decayed_weights, sgd(exponential_decay(staircase)))
@@ -189,7 +198,8 @@ class SearchEngine:
         `forwards` of each forward's OHEM loss summed over the five heads.
         `noise` holds each forward's draws (on x's device)."""
         crit = functools.partial(ohem_cross_entropy, ignore_label=255,
-                                 thresh=0.7, min_kept=self.min_kept)
+                                 thresh=0.7, min_kept=self.min_kept,
+                                 mesh=self.mesh)
         total = None
         for (idx, mode), draws in zip(forwards, noise):
             ap = arch_params[idx]
@@ -199,13 +209,25 @@ class SearchEngine:
             total = loss if total is None else total + loss
         return total
 
-    @staticmethod
-    def _zero_missing_grads(tensors: Sequence[torch.Tensor]) -> None:
-        # optax updates every leaf; torch's optimizers skip a tensor whose
-        # grad is None (weight decay, momentum and Adam's step count too)
+    def _reduced_grads(self, tensors: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """Every tensor's gradient, zeros where it has none (optax updates
+        every leaf; torch's optimizers skip a tensor whose grad is None:
+        weight decay, momentum and Adam's step count too), summed over the
+        mesh's ranks."""
         for t in tensors:
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
+        grads = [t.grad for t in tensors]
+        if self.mesh is not None:
+            self.mesh.reduce_grads_(grads)
+        return grads
+
+    def _reduced(self, loss: torch.Tensor) -> torch.Tensor:
+        """A rank's share of a global loss, summed over the ranks."""
+        loss = loss.detach()
+        return loss if self.mesh is None else self.mesh.all_reduce_(
+            loss.clone())
 
     def weight_step(self, x: torch.Tensor, y: torch.Tensor, pretrain: bool,
                     generator: Optional[torch.Generator] = None,
@@ -213,8 +235,9 @@ class SearchEngine:
         """One update of the supernet's weights (loop.py:212-238): the
         multi-forward loss with the arch parameters held fixed, the global
         norm clip, then SGD with decayed weights at the staircase rate.
-        Returns the loss (a device tensor)."""
+        Returns the loss (a device tensor; of the global batch)."""
         self.model.train()
+        sync_batchnorm_(self.model, self.mesh)
         forwards = self.forwards(pretrain)
         if noise is None:
             noise = to_device(self.draw_noise(forwards, generator),
@@ -225,20 +248,22 @@ class SearchEngine:
         loss = self.supernet_loss(x, y, fixed, forwards, noise)
         loss.backward()
         params = [p for g in opt.param_groups for p in g["params"]]
-        self._zero_missing_grads(params)
-        clip_by_global_norm_([p.grad for p in params], self.config.grad_clip)
+        clip_by_global_norm_(self._reduced_grads(params),
+                             self.config.grad_clip)
         set_learning_rate(opt, self.step)
         opt.step()
         self.step += 1
-        return loss.detach()
+        return self._reduced(loss)
 
     def arch_step(self, x: torch.Tensor, y: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   noise=None, latency_noise=None) -> Dict[str, torch.Tensor]:
         """One Adam update of every arch parameter (loop.py:240-279) on the
         task loss plus sum_i lat_w[i] * latency_i. Returns loss_arch,
-        loss_latency and latency_supernet_ms (device tensors)."""
+        loss_latency and latency_supernet_ms (device tensors; loss_arch of
+        the global batch)."""
         self.model.train()
+        sync_batchnorm_(self.model, self.mesh)
         forwards = self.forwards(False)
         if noise is None:
             noise = self.draw_noise(forwards, generator)
@@ -258,10 +283,15 @@ class SearchEngine:
                              noise=latency_noise)
         lat_w = self.controller.weights
         loss_lat = sum(lat_w[i] * l for i, l in lats.items())
-        (loss + loss_lat).backward(inputs=tensors)
-        self._zero_missing_grads(tensors)
+        # the latency term depends on the replicated arch parameters only:
+        # one rank adds it, so the reduced gradient counts it once
+        total = loss if self.mesh is not None and self.mesh.rank else (
+            loss + loss_lat)
+        total.backward(inputs=tensors)
+        self._reduced_grads(tensors)
         self.arch_optimizer.step()
-        return {"loss_arch": loss.detach(), "loss_latency": loss_lat.detach(),
+        return {"loss_arch": self._reduced(loss),
+                "loss_latency": loss_lat.detach(),
                 "latency_supernet_ms": lats[len(lats) - 1].detach()}
 
     # ---------------- epoch orchestration ----------------
@@ -304,7 +334,8 @@ class SearchEngine:
                  max_items: Optional[int] = None) -> List[float]:
         """mIoU of all five heads (train_search.py:260-271), one forward an
         image. The arch's widths are sampled once a call from a generator
-        seeded 0."""
+        seeded 0. With a mesh, rank r takes items r, r + world, ... and the
+        counts are summed over ranks, so every rank returns the same."""
         c = self.config
         self.model.eval()
         ap = self.arch_params[arch_idx].detached()
@@ -316,7 +347,9 @@ class SearchEngine:
         n = min(len(val_dataset), max_items or len(val_dataset))
         hists = torch.zeros((5, c.num_classes, c.num_classes),
                             dtype=torch.int64, device=self.device)
-        for i in range(n):
+        rank, world = ((0, 1) if self.mesh is None
+                       else (self.mesh.rank, self.mesh.world))
+        for i in range(rank, n, world):
             s = val_dataset[i]
             img = eval_preprocess(s["data"], c.data.image_mean,
                                   c.data.image_std)
@@ -328,6 +361,8 @@ class SearchEngine:
             for k, p in enumerate(preds):
                 hists[k] += confusion_hist(torch.argmax(p, -1), label,
                                            c.num_classes)
+        if self.mesh is not None:
+            self.mesh.all_reduce_(hists)
         hists = hists.cpu().numpy()
         return [compute_score(hists[k])[1] for k in range(5)]
 
@@ -406,7 +441,11 @@ class SearchEngine:
         arch_idx -> {mIoU02, latency02, mIoU12, latency12}, so each arch's
         file carries its own numbers (the reference stamps the last arch's
         into every file, train_search.py:185-202; PARITY.md). A flat
-        {mIoU02, ...} dict applies to every arch."""
+        {mIoU02, ...} dict applies to every arch. With a mesh rank 0 writes
+        them and every rank waits until it has."""
+        if self.mesh is not None and self.mesh.rank:
+            self.mesh.barrier()
+            return
         os.makedirs(save_dir, exist_ok=True)
         save(os.path.join(save_dir, "weights_ckpt"),
              {"model": self.model.state_dict()})
@@ -422,6 +461,8 @@ class SearchEngine:
                 save_arch(path, arch,
                           mIoU02=m.get("mIoU02"), latency02=m.get("latency02"),
                           mIoU12=m.get("mIoU12"), latency12=m.get("latency12"))
+        if self.mesh is not None:
+            self.mesh.barrier()
 
 
 def run_search(config: SearchConfig, val_dataset=None, epochs=None,
@@ -433,7 +474,8 @@ def run_search(config: SearchConfig, val_dataset=None, epochs=None,
     """The full driver (train_search.py:36-212): pretrain when
     config.pretrain is true, else bi-level search with latency control.
     Scalars go to save_dir/metrics.jsonl (and TensorBoard where it
-    imports)."""
+    imports). `mesh`: this rank of a data-parallel search (its loaders make
+    only its shard of each batch; rank 0 writes the scalars)."""
     if plot_genotypes:
         raise NotImplementedError(
             "genotype plots are not ported yet (ROADMAP Queue 1 item 7)")
@@ -448,7 +490,7 @@ def run_search(config: SearchConfig, val_dataset=None, epochs=None,
     if start_epoch == 0 and not pretrain and config.load_path:
         engine.load_weights(config.load_path)
     writer = None
-    if save_dir:
+    if save_dir and (mesh is None or mesh.rank == 0):
         from ..utils.logging import MetricWriter
         writer = MetricWriter(save_dir)
 
@@ -459,12 +501,13 @@ def run_search(config: SearchConfig, val_dataset=None, epochs=None,
         perm = list(np.random.default_rng(config.seed).permutation(
             config.data.num_train_imgs))
     dataset_cls = dataset_cls or Cityscapes
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     loader_model = get_train_loader(config, dataset_cls,
                                     portion=config.train_portion,
-                                    index_select=perm)
+                                    index_select=perm, shard=shard)
     loader_arch = get_train_loader(config, dataset_cls,
                                    portion=config.train_portion - 1,
-                                   index_select=perm)
+                                   index_select=perm, shard=shard)
     if val_dataset is None:
         # dataset-free smoke: a tiny synthetic val set
         val_dataset = SyntheticDataset(

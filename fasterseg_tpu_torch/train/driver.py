@@ -15,6 +15,12 @@ matrix resizes); no hand-written kernel has a backward. Evaluation folds the
 current weights into an `InferenceRunner` in fp32, so on the card it runs
 the hand-written conv kernels. Eval-only and test-submission paths included
 (train.py:155-176, train/test.py).
+
+With `mesh` (a `parallel.Mesh`, one per rank) training is data-parallel as
+the JAX package's SPMD session is: weights replicated from rank 0, each rank
+loading and stepping on its shard of every global batch (sync BN, global
+losses, reduced gradients), evaluation sharded over the items with its
+counts reduced, and checkpoints written by rank 0.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..eval.evaluator import EvalResult, Evaluator
 from ..eval.metrics import SegMetrics
 from ..models import DerivedNet, InferenceRunner
 from ..models.infer import resolve_device
+from ..parallel.mesh import replicate
 from ..utils.checkpoint import PartialLoad, load, partial_load, save
 from ..utils.weights import init_jax_draw_
 from .loop import TrainState, make_optimizer, train_step
@@ -88,11 +95,20 @@ class TrainSession:
     its optimizer and, in student mode, the frozen teacher.
 
     `device` defaults to CUDA and raises where there is none; tests pass
-    "cpu"."""
+    "cpu". With `mesh` the session runs on the mesh's device, one rank of a
+    data-parallel group (unless `config.is_eval`, the global batch must
+    divide over its ranks)."""
 
     def __init__(self, config: TrainConfig, arch_dir: str,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         self.config = c = config
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+            # evaluation shards images, not the training batch
+            if not c.is_eval and c.data.batch_size % mesh.world:
+                raise ValueError(f"global batch {c.data.batch_size} must "
+                                 f"divide over {mesh.world} ranks")
         self.device = resolve_device(device)
         self.models: Dict[int, DerivedNet] = {}
         self.plans: Dict[int, NetworkPlan] = {}
@@ -102,7 +118,7 @@ class TrainSession:
                 path = os.path.join(arch_dir, f"arch_{arch_idx}.pt")
             net, plan, lasts = build_model_from_arch(
                 c, path, arch_idx, c.stem_head_width[i], c.seed + arch_idx)
-            self.models[arch_idx] = net.to(self.device)
+            self.models[arch_idx] = replicate(net.to(self.device), mesh)
             self.plans[arch_idx] = plan
             logger.info("arch %d: lasts=%s ops=%s", arch_idx, lasts,
                         [g.ops for g in plan.genotypes])
@@ -127,9 +143,10 @@ class TrainSession:
 
     def step(self, images: torch.Tensor, labels: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
-        """One update on a batch already on the session's device."""
+        """One update on a batch (this rank's shard of it, with a mesh)
+        already on the session's device."""
         return train_step(self.state, images, labels, self.teacher,
-                          **self.step_kwargs)
+                          mesh=self.mesh, **self.step_kwargs)
 
     def load_weights(self, ckpt_path: str, arch_idx: Optional[int] = None
                      ) -> PartialLoad:
@@ -171,27 +188,35 @@ class TrainSession:
         return InferenceRunner(self.plans[self.student_idx], net,
                                dtype=torch.float32, device=self.device)
 
-    def evaluate(self, val_dataset, max_items: Optional[int] = None
-                 ) -> EvalResult:
+    def evaluate(self, val_dataset, max_items: Optional[int] = None,
+                 mesh=None, spatial: bool = False) -> EvalResult:
         """Whole-image eval of the trained network with the config's
-        protocol, through `runner()` rebuilt from the current weights."""
+        protocol, through `runner()` rebuilt from the current weights;
+        sharded over the session's mesh unless `mesh` names another.
+        `spatial` raises: H-partitioned eval is not ported."""
         c = self.config
         ev = Evaluator(val_dataset, c.data.num_classes, c.data.image_mean,
                        c.data.image_std, self.runner().logits,
                        eval_scales=c.eval.eval_scale_array,
                        eval_flip=c.eval.eval_flip,
-                       ignore_label=c.data.ignore_label, device=self.device)
+                       ignore_label=c.data.ignore_label, device=self.device,
+                       mesh=self.mesh if mesh is None else mesh,
+                       spatial=spatial)
         return ev.run(max_items=max_items)
 
     def save(self, save_dir: str, epoch: Optional[int] = None) -> None:
         """weights{idx}_ckpt (the state_dict), and with `epoch` also
-        resume_ckpt (the full training state)."""
-        os.makedirs(save_dir, exist_ok=True)
-        save(os.path.join(save_dir, f"weights{self.student_idx}_ckpt"),
-             self.model.state_dict())
-        if epoch is not None:
-            save(os.path.join(save_dir, "resume_ckpt"),
-                 self._resume_payload(epoch))
+        resume_ckpt (the full training state); with a mesh rank 0 writes
+        them and every rank waits until it has."""
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            save(os.path.join(save_dir, f"weights{self.student_idx}_ckpt"),
+                 self.model.state_dict())
+            if epoch is not None:
+                save(os.path.join(save_dir, "resume_ckpt"),
+                     self._resume_payload(epoch))
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _resume_payload(self, epoch: int) -> Dict:
         """Parameters and BN buffers, the optimizer state with its momentum
@@ -241,10 +266,13 @@ def run_train(config: TrainConfig, arch_dir: str, val_dataset=None,
               save_dir: Optional[str] = None,
               teacher_ckpt: Optional[str] = None, resume: bool = False,
               dataset_cls=Cityscapes,
-              device: Union[str, torch.device] = "cuda") -> TrainSession:
+              device: Union[str, torch.device] = "cuda",
+              mesh=None) -> TrainSession:
     """The full driver (train.py:42-216): build, load the teacher, resume,
-    then per epoch train, evaluate every `eval_every` epochs and save."""
-    session = TrainSession(config, arch_dir, device=device)
+    then per epoch train, evaluate every `eval_every` epochs and save.
+    `mesh`: this rank of a data-parallel group (its loader makes only its
+    shard of each batch)."""
+    session = TrainSession(config, arch_dir, device=device, mesh=mesh)
     if session.is_student and teacher_ckpt:
         session.load_teacher_weights(teacher_ckpt)
     start_epoch = 0
@@ -259,7 +287,9 @@ def run_train(config: TrainConfig, arch_dir: str, val_dataset=None,
         logger.info("eval-only: %s", session.evaluate(val_dataset))
         return session
 
-    loader = get_train_loader(config, dataset_cls, test=config.is_test)
+    loader = get_train_loader(
+        config, dataset_cls, test=config.is_test,
+        shard=(0, 1) if mesh is None else (mesh.rank, mesh.world))
     epochs = epochs or config.nepochs
     niters = niters or config.niters_per_epoch
     try:

@@ -18,6 +18,12 @@ when a run resumes mid-epoch); it is set on the param groups before every
 update from the count k of earlier updates, lr * decay^(k // steps_per_epoch),
 optax's `exponential_decay(staircase=True)`. Training applies no gradient
 clip, as the JAX package's does not.
+
+Data parallelism (`mesh`): each rank runs the step on its shard with the
+global-batch losses and sync BN, and the gradients are sum-reduced in one
+flat bucket before the update, so every rank makes the one-rank update on
+the concatenated batch (`DistributedDataParallel` averages gradients, which
+is not the gradient of the global-count losses).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from ..eval.metrics import batch_intersection_union
+from ..parallel.mesh import sync_batchnorm_
 from .loss import kl_distillation, ohem_cross_entropy
 
 
@@ -70,36 +77,49 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                teacher: Optional[torch.nn.Module] = None, *,
                min_kept: int = 131072, ignore_label: int = 255,
                thresh: float = 0.7, aux_weight: float = 0.2,
-               num_classes: int = 19) -> Dict[str, torch.Tensor]:
+               num_classes: int = 19, mesh=None) -> Dict[str, torch.Tensor]:
     """One update of `state` in place on a batch: images (N, H, W, 3) fp32,
     labels (N, H, W) integer, on the model's device. `teacher` (frozen, in
-    eval mode, no gradient) adds the KL distillation term.
+    eval mode, no gradient) adds the KL distillation term. With `mesh` (a
+    `parallel.Mesh`) the batch is this rank's shard of the global batch,
+    and the update is the one-rank update on the global batch.
 
     Returns {loss, loss_kl, inter, union} as tensors on the device (no host
     read): the loss before the update, and the per-class intersection and
-    union of p8's class map with the labels."""
+    union of p8's class map with the labels (of the global batch)."""
     model, opt = state.model, state.optimizer
     model.train()
+    sync_batchnorm_(model, mesh)
     opt.zero_grad(set_to_none=True)
     p8, p16, p32 = model(images)
-    loss = ohem_cross_entropy(p8, labels, ignore_label, thresh, min_kept)
+    ohem = lambda p: ohem_cross_entropy(p, labels, ignore_label, thresh,
+                                        min_kept, mesh=mesh)
+    loss = ohem(p8)
     for aux in (p16, p32):
         if aux is not None:
-            loss = loss + aux_weight * ohem_cross_entropy(
-                aux, labels, ignore_label, thresh, min_kept)
-    loss_kl = torch.zeros((), device=images.device)
+            loss = loss + aux_weight * ohem(aux)
+    loss_kl = torch.zeros((), dtype=loss.dtype, device=images.device)
     if teacher is not None:
         teacher.eval()
         with torch.no_grad():
             t8 = teacher(images)
-        loss_kl = kl_distillation(p8, t8)
+        loss_kl = kl_distillation(p8, t8, mesh=mesh)
         loss = loss + loss_kl
     loss.backward()
+    if mesh is not None:
+        mesh.reduce_grads_([p.grad for g in opt.param_groups
+                            for p in g["params"] if p.grad is not None])
     set_learning_rate(opt, state.step)
     opt.step()
     state.step += 1
     inter, union = batch_intersection_union(p8.detach(), labels, num_classes)
-    return {"loss": loss.detach(), "loss_kl": loss_kl.detach(),
+    losses = torch.stack([loss.detach(), loss_kl.detach()])
+    if mesh is not None:
+        # each rank's loss is its share of the global one
+        mesh.all_reduce_(losses)
+        counts = mesh.all_reduce_(torch.cat([inter, union]))
+        inter, union = counts[:num_classes], counts[num_classes:]
+    return {"loss": losses[0], "loss_kl": losses[1],
             "inter": inter, "union": union}
 
 

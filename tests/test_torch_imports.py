@@ -227,3 +227,27 @@ def test_int8_and_study_modules_import_without_jax():
                          capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok", str(len(_INT8_STUDY_MODULES))]
+
+
+_PARALLEL_MODULES = ["fasterseg_tpu_torch.parallel",
+                     "fasterseg_tpu_torch.parallel.mesh",
+                     "fasterseg_tpu_torch.parallel.dryrun"]
+
+
+def test_parallel_modules_and_rank_helper_import_without_jax():
+    """The data-parallel modules on their own with JAX, the JAX package and
+    cv2 banned, and the tests' rank helper too: spawned ranks import it
+    (never tests/conftest.py, which imports JAX)."""
+    assert set(_PARALLEL_MODULES) <= set(_modules())
+    env = dict(os.environ, ALSO_BANNED="cv2")
+    out = subprocess.run([sys.executable, "-c", _PROBE, *_PARALLEL_MODULES],
+                         cwd=REPO, capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", str(len(_PARALLEL_MODULES))]
+    env["PYTHONPATH"] = os.pathsep.join([REPO, os.path.join(REPO, "tests")])
+    out = subprocess.run([sys.executable, "-c", _PROBE,
+                          "_torch_parallel_workers"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", "1"]

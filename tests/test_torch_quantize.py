@@ -175,3 +175,27 @@ def test_qvars_survive_checkpoint(both, tmp_path):
             assert torch.equal(back[part][k], v), k
     assert sum(v.dtype == torch.int8 for v in back["params_q"].values()) \
         == len(qvars["params_scale"]) > 10
+
+
+@pytest.mark.parametrize("port,port_ref,jax_,jax_ref,rule,met", [
+    (99.90, 99.92, 99.85, 99.86, "jax_floor", True),       # floor met
+    (99.80, 99.92, 99.90, 99.92, "jax_floor", False),      # JAX meets it
+    (99.657, 99.847, 99.649, 99.836, "jax_arithmetic_less_0.05pp", True),
+    (99.59, 99.847, 99.649, 99.836, "jax_arithmetic_less_0.05pp", False),
+])
+def test_int8_agreement_bar(port, port_ref, jax_, jax_ref, rule, met):
+    """The held int8 agreement bar: the JAX acceptance's floor, and where
+    the JAX arithmetic misses it on the same weights too, the JAX
+    arithmetic's agreement less 0.05 pp (the 8-epoch study's readings are
+    the third case)."""
+    from fasterseg_tpu_torch.cli.int8_check import agreement_bar
+    result = {"classmap_agreement_pct": port,
+              "bf16_vs_f32_agreement_pct": port_ref,
+              "mIoU_delta_points": 0.0,
+              "jax_arithmetic": {"classmap_agreement_pct": jax_,
+                                 "bf16_vs_f32_agreement_pct": jax_ref,
+                                 "mIoU_delta_points": 0.0}}
+    bar = agreement_bar(result)
+    assert bar["rule"] == rule and bar["met"] == met, bar
+    if rule != "jax_floor":
+        assert bar["floor_pct"] == pytest.approx(jax_ - 0.05)

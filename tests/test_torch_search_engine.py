@@ -15,6 +15,7 @@ as the oracle where it can be one.
   the JAX package's SearchEngine from the same state on JAX's draws.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -177,14 +178,17 @@ def test_resume_is_bit_exact(val_dataset, tmp_path):
 
 
 def test_left_out_options_raise():
+    """Genotype plots, bf16 search and `--bf16` are not ported (data
+    parallelism is: tests/test_torch_parallel.py)."""
     cfg, _ = tiny_configs(pretrain=True)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        SearchEngine(cfg, lut=port_lut(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        SearchEngine(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                     lut=port_lut(), device="cpu")
     with pytest.raises(NotImplementedError, match="genotype plots"):
         run_search(cfg, plot_genotypes=True, device="cpu")
     from fasterseg_tpu_torch.cli.train_search import main
     with pytest.raises(SystemExit):
-        main(["--synthetic", "--devices", "2", "--device", "cpu"])
+        main(["--synthetic", "--bf16", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------- slow tier
