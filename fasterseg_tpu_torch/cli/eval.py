@@ -10,8 +10,9 @@ The forward is the fp32 `InferenceRunner` of the checkpoint's weights, so
 on CUDA (the default) it runs the hand-written conv kernels. Reading the
 file-list dataset's PNGs needs cv2. `--devices N` shards the images over N
 ranks (NCCL on cuda:0..N-1, more ranks than cards raise; gloo with `--device
-cpu`) and reduces the counts; `--spatial` (each image split over H) raises, as it is not
-ported.
+cpu`) and reduces the counts; with `--spatial` each image is split over H
+across the N ranks instead (every conv with its neighbours' halo rows), the
+batch-1 full-resolution protocol.
 """
 
 from __future__ import annotations
@@ -40,13 +41,13 @@ def main(argv=None):
     p.add_argument("--devices", type=int, default=None, metavar="N",
                    help="evaluate over N ranks, the images sharded")
     p.add_argument("--spatial", action="store_true",
-                   help="partition each image over H across the ranks "
-                        "(not ported: raises)")
+                   help="partition each image over H across the --devices "
+                        "ranks instead of sharding the images")
     args = p.parse_args(argv)
 
-    from ..parallel import SPATIAL_NOT_PORTED, launch, rank_devices
-    if args.spatial:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    from ..parallel import launch, rank_devices
+    if args.spatial and not args.devices:
+        p.error("--spatial splits each image over the ranks of --devices N")
     if args.devices:
         if args.show_dir:
             p.error("--show-dir writes its panels in one process")
@@ -81,7 +82,8 @@ def _run(mesh, args):
         train_source=os.path.join(args.data_root, cfg.data.train_source),
         eval_source=os.path.join(args.data_root, cfg.data.eval_source))
     val = Cityscapes(setting, "val")
-    res = session.evaluate(val, max_items=args.max_items)
+    res = session.evaluate(val, max_items=args.max_items,
+                           spatial=args.spatial)
     if mesh is None or mesh.rank == 0:
         print(print_iou(res.iou_per_class, res.pixel_acc,
                         Cityscapes.class_names))

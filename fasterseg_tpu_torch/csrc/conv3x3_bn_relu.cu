@@ -80,6 +80,13 @@
 //   * conv3x3_kernel: fp32 activations (the tests' bars) and any other
 //     channel count, on CUDA cores: one thread per output pixel and a block
 //     of 32 output channels.
+// Halo mode (spatial evaluation, an image split over H across ranks): the
+// input holds top + h + bottom rows, top and bottom each 0 or 1, where the
+// extra rows are a neighbouring block's edge rows. Every kernel reads input
+// row r of the block at buffer row r + top and zero-fills only outside the
+// buffer, so a halo row is read where the image's zero padding was; the
+// output holds the block's (h - 1) / S + 1 rows. The generic and stem
+// kernels shift their row index, the wgmma kernel its TMA start row.
 // In all three the pre-BN sum never leaves registers (or the fp32 scratch of
 // a split K): folded-BN scale/bias and ReLU are applied in the epilogue, and
 // the output is rounded once, to the activation type.
@@ -139,14 +146,15 @@ __device__ __forceinline__ void fma_row(float* acc, float xv, const float* wrow)
   }
 }
 
-// x: (H, W, Ci); w: (3, 3, Ci, Co) HWIO fp32; scale/bias: (Co,) fp32;
-// y: (Ho, Wo, Co). Grid: (ceil(Wo/TW), Ho, ceil(Co/CO_BLK)).
+// x: (H, W, Ci), its first `top` rows a halo; w: (3, 3, Ci, Co) HWIO fp32;
+// scale/bias: (Co,) fp32; y: (Ho, Wo, Co). Grid: (ceil(Wo/TW), Ho,
+// ceil(Co/CO_BLK)).
 template <typename T, int S>
 __global__ void __launch_bounds__(TW)
 conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ bias,
                T* __restrict__ y, int H, int W, int Ci, int Co, int Ho, int Wo,
-               int relu) {
+               int top, int relu) {
   __shared__ float4 ws4[9 * CI_CHUNK * CO_BLK / 4];  // [tap][ci][co]
   float* ws = reinterpret_cast<float*>(ws4);
 
@@ -178,7 +186,7 @@ conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
 #pragma unroll
     for (int ky = 0; ky < 3; ++ky) {
-      const int iy = oy * S - 1 + ky;
+      const int iy = oy * S - 1 + top + ky;
       if (iy < 0 || iy >= H) continue;
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
@@ -397,6 +405,7 @@ struct TcArgs {
   int nch1, nch;             // chunks of the first input, of both
   int ksplit, n_work;
   int relu, resident, ps, ws;
+  int top;                   // halo rows above the block (0 or 1)
   int tma_out;               // Co % 8 == 0: outputs leave by TMA stores
 };
 
@@ -454,7 +463,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
       const int ks = work % a.ksplit, item = work / a.ksplit;
       const int nb = item % a.n_nb, tile = item / a.n_nb;
       const int x0 = (tile % a.tiles_x) * TC_TW * S - 1;
-      const int y0 = (tile / a.tiles_x) * C::TH * S - 1;
+      const int y0 = (tile / a.tiles_x) * C::TH * S - 1 + a.top;
       const int t0 = ks * steps / a.ksplit, t1 = (ks + 1) * steps / a.ksplit;
       for (int t = t0; t < t1; ++t) {
         const int chunk = t / 9, tap = t - 9 * chunk;
@@ -673,7 +682,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
 // ------------------------------------------------------ the Ci = 3 stem entry
 // bf16, Ci = 3, stride 2, Co = CO in {32, 48, 64}. A block of 128 threads
 // computes 128 consecutive output pixels of one output row, all CO channels.
-// x: (H, W, 3); w: (3, 3, 3, CO) fp32; y: (Ho, Wo, CO).
+// x: (H, W, 3), its first `top` rows a halo; w: (3, 3, 3, CO) fp32;
+// y: (Ho, Wo, CO).
 // Grid: (ceil(Wo / 128), Ho). (Two pixels a thread, to halve the weight reads
 // from shared memory, measured 4-9 % slower on the H100 and was not kept.)
 constexpr int ST_PX = 128;                         // output pixels per block
@@ -686,7 +696,7 @@ __global__ void __launch_bounds__(ST_PX)
 conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ scale, const float* __restrict__ bias,
                     __nv_bfloat16* __restrict__ y, int H, int W, int Ho, int Wo,
-                    int relu) {
+                    int top, int relu) {
   constexpr int PITCH = CO * 2 + 16;  // bytes per staged output pixel: 16-byte
                                       // writes of neighbouring threads hit
                                       // different banks
@@ -713,7 +723,7 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   int shift[3];  // byte offset in rows[r] of input column ix0
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    const int iy = oy * 2 - 1 + r;
+    const int iy = oy * 2 - 1 + top + r;
     shift[r] = 0;
     if (iy < 0 || iy >= H) continue;
     const long long lo = ((long long)iy * W + cx0) * 6, hi = ((long long)iy * W + cx1) * 6;
@@ -743,7 +753,7 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   const int ox = ox0 + tid;
 #pragma unroll
   for (int ky = 0; ky < 3; ++ky) {
-    const int iy = oy * 2 - 1 + ky;
+    const int iy = oy * 2 - 1 + top + ky;
     if (iy < 0 || iy >= H) continue;
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx) {
@@ -928,17 +938,18 @@ cudaError_t launch_tc_s(int ck, int bn, const CUtensorMap& m1, const CUtensorMap
 template <typename T>
 cudaError_t launch_generic(const void* x, const float* w, const float* scale,
                            const float* bias, void* y, int H, int W, int Ci, int Co,
-                           int Ho, int Wo, int stride, int relu, cudaStream_t stream) {
+                           int Ho, int Wo, int stride, int top, int relu,
+                           cudaStream_t stream) {
   if (Ho > 65535) return cudaErrorInvalidValue;  // one block row per output row
   dim3 grid((Wo + TW - 1) / TW, Ho, (Co + CO_BLK - 1) / CO_BLK);
   if (stride == 1)
     conv3x3_kernel<T, 1><<<grid, TW, 0, stream>>>(
         static_cast<const T*>(x), w, scale, bias, static_cast<T*>(y), H, W, Ci, Co, Ho,
-        Wo, relu);
+        Wo, top, relu);
   else
     conv3x3_kernel<T, 2><<<grid, TW, 0, stream>>>(
         static_cast<const T*>(x), w, scale, bias, static_cast<T*>(y), H, W, Ci, Co, Ho,
-        Wo, relu);
+        Wo, top, relu);
   return cudaGetLastError();
 }
 
@@ -950,11 +961,17 @@ bool valid_tile(int ck, int bn) { return (ck == 64 || ck == 32) && (bn == 64 || 
 // caller. out[0]: 0 generic CUDA-core kernel, 1 stem kernel, 2 wgmma kernel;
 // out[1]: floats of split-K scratch; out[2]: counters (ints, zero).
 // ci2 = 0 for one input; ck, bn as the weights were packed (0, 0: not packed).
+// H counts the halo rows: top and bottom (each 0 or 1) of them belong to the
+// neighbouring blocks, and the output has (H - top - bottom - 1) / stride + 1
+// rows.
 extern "C" int conv3x3_bn_relu_plan(int H, int W, int ci1, int ci2, int Co, int stride,
-                                    int is_bf16, int ck, int bn, int* out) {
+                                    int is_bf16, int ck, int bn, int top, int bottom,
+                                    int* out) {
   out[0] = out[1] = out[2] = 0;
   if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+  if (top < 0 || top > 1 || bottom < 0 || bottom > 1 || H - top - bottom < 1)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H - top - bottom - 1) / stride + 1, Wo = (W - 1) / stride + 1;
   if (is_bf16 && ci2 == 0 && ci1 == 3 && stride == 2 && (Co == 32 || Co == 48 || Co == 64) &&
       Ho <= 65535) {
     out[0] = 1;
@@ -982,37 +999,44 @@ extern "C" int conv3x3_bn_relu_plan(int H, int W, int ci1, int ci2, int Co, int 
 // runs over their channel concat. w: (3, 3, ci1 + ci2, Co) HWIO fp32, used by
 // the CUDA-core kernels; wpk: the packed bf16 hi/lo weights (ck, bn as
 // packed), used by the wgmma kernel. scratch, counters: as
-// conv3x3_bn_relu_plan sized them (counters zero; left zero).
+// conv3x3_bn_relu_plan sized them (counters zero; left zero). x and x2 hold
+// H rows, the first `top` and the last `bottom` of them halo rows (0 or 1
+// each; see the plan).
 extern "C" int conv3x3_bn_relu(const void* x, const void* x2, const void* w,
                                const void* wpk, const void* scale, const void* bias,
                                void* y, void* scratch, void* counters, int H, int W,
                                int ci1, int ci2, int Co, int stride, int relu,
-                               int is_bf16, int ck, int bn, void* stream) {
+                               int is_bf16, int ck, int bn, int top, int bottom,
+                               void* stream) {
   int route[3];
-  const int bad = conv3x3_bn_relu_plan(H, W, ci1, ci2, Co, stride, is_bf16, ck, bn, route);
+  const int bad = conv3x3_bn_relu_plan(H, W, ci1, ci2, Co, stride, is_bf16, ck, bn, top,
+                                       bottom, route);
   if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   const float* wf = static_cast<const float*>(w);
-  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+  const int Ho = (H - top - bottom - 1) / stride + 1, Wo = (W - 1) / stride + 1;
   if (route[0] == 0) {
     if (is_bf16)
       return (int)launch_generic<__nv_bfloat16>(x, wf, sc, bi, y, H, W, ci1, Co, Ho, Wo,
-                                                stride, relu, s);
+                                                stride, top, relu, s);
     return (int)launch_generic<float>(x, wf, sc, bi, y, H, W, ci1, Co, Ho, Wo, stride,
-                                      relu, s);
+                                      top, relu, s);
   }
   if (route[0] == 1) {
     dim3 grid((Wo + ST_PX - 1) / ST_PX, Ho);
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
     if (Co == 32)
-      conv3x3_stem_kernel<32><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, relu);
+      conv3x3_stem_kernel<32><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, top,
+                                                     relu);
     else if (Co == 48)
-      conv3x3_stem_kernel<48><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, relu);
+      conv3x3_stem_kernel<48><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, top,
+                                                     relu);
     else
-      conv3x3_stem_kernel<64><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, relu);
+      conv3x3_stem_kernel<64><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, top,
+                                                     relu);
     return (int)cudaGetLastError();
   }
   const int nch1 = ceil_div(ci1, ck), nch = nch1 + ceil_div(ci2, ck);
@@ -1041,6 +1065,7 @@ extern "C" int conv3x3_bn_relu(const void* x, const void* x2, const void* w,
   args.nch1 = nch1; args.nch = nch;
   args.ksplit = p.ksplit; args.n_work = p.n_work;
   args.relu = relu; args.resident = p.resident; args.ps = p.ps; args.ws = p.ws;
+  args.top = top;
   args.tma_out = tma_out;
   if (stride == 1) return (int)launch_tc_s<1>(ck, bn, m1, m2, my, args, p, s);
   return (int)launch_tc_s<2>(ck, bn, m1, m2, my, args, p, s);

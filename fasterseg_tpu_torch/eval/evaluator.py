@@ -23,6 +23,24 @@ items, rank r takes slots [r * batch_size, (r + 1) * batch_size), still
 are all ignore, and a rank whose slots are all padding runs no forward (it
 would count nothing). hist, correct and labeled are then summed over ranks,
 so every rank returns the one-rank result.
+
+With `spatial=True` (and a mesh) each image is split over H across the ranks
+instead, the batch-1 full-resolution protocol of the JAX package's spatial
+axis (its evaluator.py:47-77). Every rank walks every item and keeps its
+block of rows: the image's rows are partitioned into contiguous blocks
+starting at multiples of the forward's `row_multiple`
+(`parallel.spatial.partition`), the rank normalises its block, runs the
+forward on it and, for the flip TTA, on its block flipped along W (W is
+whole on every rank); at multi-scale each scaled image (resized whole on
+the host) is partitioned by the same rule and the probabilities reach this
+rank's block of full-resolution rows through the row-window form of the
+half-pixel resize; then the argmax and the counts of its block of labels.
+The counts are summed over ranks. The forward is spatial-aware: it takes
+this rank's `parallel.spatial.Block` of the normalised images (its rows,
+the partition and the exchange; e.g. `InferenceRunner(...).logits`) and
+returns its Block of the logits; blocks start at multiples of its
+`row_multiple` (of the forward, or of the object a bound method belongs
+to, such as the runner; else 1). Sliding-window eval is not split.
 """
 
 from __future__ import annotations
@@ -35,8 +53,9 @@ import torch
 
 from ..data.preprocess import _resize, eval_preprocess, pad_image_to_shape
 from ..models.infer import resolve_device
-from ..ops.resize import resize_bilinear_halfpixel
-from ..parallel.mesh import SPATIAL_NOT_PORTED
+from ..ops.resize import (in_float64, resize_bilinear_halfpixel,
+                          resize_bilinear_halfpixel_rows)
+from ..parallel.spatial import Block, Exchange, partition
 from .metrics import compute_score, hist_stats
 
 
@@ -62,8 +81,9 @@ class Evaluator:
     """forward_fn(images NHWC fp32 on `device`) -> logits (N, H, W, C) at
     the input resolution. `device` defaults to CUDA and raises where there
     is none; tests pass "cpu". `mesh` shards the items over ranks (the
-    forward runs on the mesh's device); `spatial` (H-partitioned images)
-    raises, as it is not ported."""
+    forward runs on the mesh's device); with `spatial` it splits each image
+    over H across them instead, and the forward takes and returns a
+    `parallel.spatial.Block` (module docstring)."""
 
     def __init__(self, dataset, num_classes: int, image_mean, image_std,
                  forward_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -72,11 +92,17 @@ class Evaluator:
                  ignore_label: int = 255,
                  device: Union[str, torch.device] = "cuda",
                  mesh=None, spatial: bool = False):
-        if spatial:
-            raise NotImplementedError(SPATIAL_NOT_PORTED)
+        if spatial and mesh is None:
+            raise ValueError("spatial evaluation splits images over the "
+                             "ranks of a mesh: pass one")
         if mesh is not None:
             device = mesh.device
         self.mesh = mesh
+        self.spatial = spatial
+        # the row exchanges of a spatial forward, with their counts
+        self.exchange = Exchange(mesh) if spatial else None
+        self.row_multiple = getattr(getattr(forward_fn, "__self__",
+                                            forward_fn), "row_multiple", 1)
         self.dataset = dataset
         self.num_classes = num_classes
         self.image_mean = image_mean
@@ -94,21 +120,44 @@ class Evaluator:
 
     # ---- device programs ----
 
-    def _probs(self, x: torch.Tensor) -> torch.Tensor:
-        """Normalized images -> summed probabilities, with the flip TTA
-        (val_func_process, evaluator.py:297-318)."""
-        p = probabilities(self.forward_fn(x))
+    def _forward(self, x: torch.Tensor, part) -> torch.Tensor:
+        """The forward's logits of images x, or with `part` of this rank's
+        block x of images whose rows split as `part`."""
+        if part is None:
+            return self.forward_fn(x)
+        return self.forward_fn(Block(x, part, self.exchange)).t
+
+    def _probs(self, x: torch.Tensor, part=None) -> torch.Tensor:
+        """Normalized images (or this rank's block of them, `part`) ->
+        summed probabilities, with the flip TTA (val_func_process,
+        evaluator.py:297-318)."""
+        p = probabilities(self._forward(x, part))
         if self.eval_flip:
-            lf = self.forward_fn(torch.flip(x, [2]))
+            lf = self._forward(torch.flip(x, [2]), part)
             p = p + torch.flip(probabilities(lf), [2])
         return p
 
-    def _fused_eval(self, images_u8: torch.Tensor, labels: torch.Tensor):
-        """Single scale: uint8 images and labels on the device -> (hist,
-        labeled, correct), all computed there."""
+    def _partition(self, height: int):
+        """How a spatial evaluation splits `height` rows (else None)."""
+        return (partition(height, self.mesh.world, self.row_multiple)
+                if self.spatial else None)
+
+    def _rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's block of rows of (N, H, ...) images or labels in a
+        spatial evaluation, else all of them."""
+        if not self.spatial:
+            return a
+        lo, hi = self._partition(a.shape[1]).block(self.mesh.rank)
+        return a[:, lo:hi]
+
+    def _fused_eval(self, images_u8: torch.Tensor, labels: torch.Tensor,
+                    part=None):
+        """Single scale: uint8 images (or this rank's block of them) and
+        their labels on the device -> (hist, labeled, correct), all computed
+        there."""
         x = images_u8.float() / 255.0
         x = (x - self._mean) / self._std
-        pred = torch.argmax(self._probs(x), dim=-1).int()
+        pred = torch.argmax(self._probs(x, part), dim=-1).int()
         return hist_stats(pred, labels, self.num_classes, self.ignore_label)
 
     # ---- host protocol ----
@@ -116,10 +165,11 @@ class Evaluator:
     @torch.inference_mode()
     def _predict_whole(self, imgs: np.ndarray) -> torch.Tensor:
         """Multi-scale whole-image prediction -> int32 class map (N, H, W)
-        on the device. Per scale: host resize of the uint8 images, then the
-        probabilities resized to full resolution on the device and summed;
-        one argmax at the end."""
+        on the device (spatial: this rank's rows of it). Per scale: host
+        resize of the uint8 images, then the probabilities resized to full
+        resolution on the device and summed; one argmax at the end."""
         H, W = imgs.shape[1], imgs.shape[2]
+        full = self._partition(H)
         acc = None
         for scale in self.eval_scales:
             sh, sw = int(H * scale), int(W * scale)
@@ -128,9 +178,16 @@ class Evaluator:
                     _resize(im, (sw, sh), nearest=False) if scale != 1.0 else im,
                     self.image_mean, self.image_std)
                 for im in imgs])
-            p = self._probs(torch.from_numpy(batch).to(self.device))
-            if p.shape[1:3] != (H, W):
-                p = resize_bilinear_halfpixel(p, (H, W))
+            part = self._partition(sh)
+            p = self._probs(torch.from_numpy(self._rows(batch)).to(
+                self.device), part)
+            if (sh, sw) != (H, W):
+                # in float64: a block's rows get the whole map's bits
+                p = (in_float64(resize_bilinear_halfpixel, p, (H, W))
+                     if part is None else
+                     in_float64(resize_bilinear_halfpixel_rows,
+                                Block(p, part, self.exchange), (H, W),
+                                full).t)
             acc = p if acc is None else acc + p
         return torch.argmax(acc, dim=-1).int()
 
@@ -139,10 +196,11 @@ class Evaluator:
         """Whole-image eval over the dataset, `batch_size` images a forward;
         the tail batch is padded with repeats whose labels are all
         `ignore_label`, so they count nothing. With a mesh, this rank's
-        share of the items, the counts summed over ranks."""
+        share of the items, the counts summed over ranks; spatial, every
+        item, this rank's rows of each."""
         n_total = min(len(self.dataset), max_items or len(self.dataset))
         batch = self.batch_size
-        rank, world = ((0, 1) if self.mesh is None
+        rank, world = ((0, 1) if self.mesh is None or self.spatial
                        else (self.mesh.rank, self.mesh.world))
         n = self.num_classes
         hist = torch.zeros((n, n), dtype=torch.int64, device=self.device)
@@ -159,10 +217,12 @@ class Evaluator:
             imgs = np.stack([s["data"] for s in samples])
             labels = np.stack([s["label"] for s in samples]).astype(np.int32)
             labels[n_real:] = self.ignore_label
-            lb = torch.from_numpy(labels).to(self.device)
+            lb = torch.from_numpy(self._rows(labels)).to(self.device)
             if fused:
-                xb = torch.from_numpy(imgs.astype(np.uint8)).to(self.device)
-                h, l, c = self._fused_eval(xb, lb)
+                xb = torch.from_numpy(self._rows(imgs.astype(np.uint8))).to(
+                    self.device)
+                h, l, c = self._fused_eval(xb, lb,
+                                           self._partition(imgs.shape[1]))
             else:
                 h, l, c = hist_stats(self._predict_whole(imgs), lb,
                                      self.num_classes, self.ignore_label)

@@ -17,7 +17,15 @@ def launch_counts() -> dict:
             "upsample8_argmax": fused.launches["upsample8_argmax"]}
 
 
+def halo_launch_counts() -> dict:
+    """Of the conv launches so far, those in halo mode (a block of an
+    image split over H), by stride."""
+    return {"conv3x3_bn_relu_s1": conv.halo_launches[1],
+            "conv3x3_bn_relu_s2": conv.halo_launches[2]}
+
+
 def reset_launch_counts() -> None:
     conv.launches.update({1: 0, 2: 0})
+    conv.halo_launches.update({1: 0, 2: 0})
     fused.launches["upsample8_argmax"] = 0
 

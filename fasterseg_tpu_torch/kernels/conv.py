@@ -8,6 +8,11 @@ space-to-depth layouts of the Pallas kernels are not reproduced.
 The tensor-core kernel takes its weights split into bf16 hi + lo and packed
 in the layout of its B operand (`split_weights`), prepared once where the
 weights are folded.
+
+Halo mode (`halo=(top, bottom)`): the input is one block of an image split
+over H (parallel/spatial.py) with `top` rows of the block above and `bottom`
+rows of the block below around it (0 or 1 each); the conv reads them where
+it would zero-pad, and returns the block's own output rows.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from ..ops.conv import fold_bn  # noqa: F401  (pallas/conv.py:38 counterpart)
 from . import build
 
 # launches of the CUDA kernel, by stride (the Pallas originals are two
-# kernels: the planar stride-1 one and the space-to-depth stride-2 one)
+# kernels: the planar stride-1 one and the space-to-depth stride-2 one), and
+# of those the launches in halo mode
 launches = {1: 0, 2: 0}
+halo_launches = {1: 0, 2: 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535     # the CUDA-core kernels: one block row per output row
@@ -133,10 +140,10 @@ def _kernel():
     if _fns is None:
         lib = build.load("conv3x3_bn_relu")
         run, plan = lib.conv3x3_bn_relu, lib.conv3x3_bn_relu_plan
-        run.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+        run.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
             ctypes.c_void_p]
         run.restype = ctypes.c_int
-        plan.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        plan.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)]
         plan.restype = ctypes.c_int
         _fns = (run, plan)
     return _fns
@@ -144,8 +151,9 @@ def _kernel():
 
 def _plan(key: tuple) -> Tuple[int, ...]:
     """(route, scratch floats, counters) of the conv `key` = (H, W, ci1,
-    ci2, co, stride, is_bf16, ck, bn), from the library's own tile choice;
-    route 2 is the tensor-core kernel."""
+    ci2, co, stride, is_bf16, ck, bn, top, bottom), H with the halo rows,
+    from the library's own tile choice; route 2 is the tensor-core
+    kernel."""
     got = _plans.get(key)
     if got is None:
         out = (ctypes.c_int * 3)()
@@ -156,7 +164,7 @@ def _plan(key: tuple) -> Tuple[int, ...]:
     return got
 
 
-def _check(x, w, scale, bias, stride, x2):
+def _check(x, w, scale, bias, stride, x2, halo):
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be one of {_DTYPES}, got {x.dtype}")
     if any(t.dtype != torch.float32 for t in (w, scale, bias)):
@@ -178,6 +186,10 @@ def _check(x, w, scale, bias, stride, x2):
         raise ValueError(f"scale and bias must be ({co},)")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
+    top, bottom = halo
+    if top not in (0, 1) or bottom not in (0, 1) or x.shape[1] - top - bottom < 1:
+        raise ValueError(f"halo {tuple(halo)}: top and bottom are 0 or 1 rows "
+                         f"around at least one row of x's {x.shape[1]}")
     devices = {t.device for t in (x, w, scale, bias)}
     if x2 is not None:
         devices.add(x2.device)
@@ -186,15 +198,25 @@ def _check(x, w, scale, bias, stride, x2):
 
 
 def conv3x3_bn_relu_plain(x, w, scale, bias, stride: int = 1,
-                          relu: bool = True, x2=None) -> torch.Tensor:
+                          relu: bool = True, x2=None,
+                          halo: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Plain version (same math): fp32 conv of the given values, fp32
     epilogue, rounded once to x's dtype. NHWC in and out. With `x2` the
-    conv runs over the channel concat of x and x2."""
+    conv runs over the channel concat of x and x2. With `halo` (top,
+    bottom) the first `top` and last `bottom` rows of x (and x2) are a
+    neighbouring block's: H is zero-padded only on a side without one,
+    then the conv is valid in H and same in W."""
     if isinstance(w, ConvWeights):
         w = w.w
     xin = x if x2 is None else torch.cat([x, x2], dim=-1)
-    y = F.conv2d(xin.permute(0, 3, 1, 2).float(),
-                 w.permute(3, 2, 0, 1).float(), stride=stride, padding=1)
+    xin = xin.permute(0, 3, 1, 2).float()
+    wf = w.permute(3, 2, 0, 1).float()
+    top, bottom = halo
+    if top or bottom:
+        y = F.conv2d(F.pad(xin, (0, 0, 1 - top, 1 - bottom)), wf,
+                     stride=stride, padding=(0, 1))
+    else:
+        y = F.conv2d(xin, wf, stride=stride, padding=1)
     y = y.permute(0, 2, 3, 1) * scale + bias
     if relu:
         y = torch.relu(y)
@@ -203,7 +225,8 @@ def conv3x3_bn_relu_plain(x, w, scale, bias, stride: int = 1,
 
 def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
                     stride: int = 1, relu: bool = True,
-                    x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    x2: Optional[torch.Tensor] = None,
+                    halo: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """x: (1, H, W, Ci) NHWC, float32 or bfloat16; w: (3, 3, Ci, Co) HWIO
     float32, or the `ConvWeights` that `split_weights` made of it;
     scale/bias: (Co,) float32 folded BN. Returns (1, Ho, Wo, Co) in x's
@@ -218,15 +241,22 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
     A CUDA tensor runs a kernel: bfloat16 with channel counts that are
     multiples of 16 on the tensor cores (float32 weights are split and
     packed on the fly; pass `ConvWeights` to do that once), everything else
-    on CUDA cores. A CPU tensor runs the plain version."""
+    on CUDA cores. A CPU tensor runs the plain version.
+
+    `halo` = (top, bottom), each 0 or 1: x (and x2) is a block of rows of a
+    taller image with that many of its neighbours' rows above and below it
+    (module docstring); the output has the block's (h - 1) // stride + 1
+    rows, h = H - top - bottom."""
     cw = w if isinstance(w, ConvWeights) else None
     if cw is not None:
         w = cw.w
-    _check(x, w, scale, bias, stride, x2)
+    top, bottom = halo = (int(halo[0]), int(halo[1]))
+    _check(x, w, scale, bias, stride, x2, halo)
     if x2 is not None and stride != 1:
         raise ValueError("a second input is taken at stride 1 only")
     if x.device.type == "cpu":
-        return conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, x2)
+        return conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, x2,
+                                     halo)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     bf16 = x.dtype == torch.bfloat16
@@ -249,9 +279,9 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     co = w.shape[3]
     ck, bn = (cw.ck, cw.bn) if tensor_cores else (0, 0)
-    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    ho, wo = (H - top - bottom - 1) // stride + 1, (W - 1) // stride + 1
     route, n_scratch, n_counters = _plan(
-        (H, W, ci1, ci2, co, stride, int(bf16), ck, bn))
+        (H, W, ci1, ci2, co, stride, int(bf16), ck, bn, top, bottom))
     if route != 2 and ho > _MAX_GRID_Y:
         raise ValueError(f"output height {ho} exceeds the CUDA-core kernels' "
                          f"grid limit of {_MAX_GRID_Y} rows")
@@ -276,9 +306,11 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
             x.data_ptr(), ptr(x2), w.data_ptr(),
             cw.packed.data_ptr() if tensor_cores else None, scale.data_ptr(),
             bias.data_ptr(), y.data_ptr(), ptr(scratch), ptr(counters), H, W,
-            ci1, ci2, co, stride, int(relu), int(bf16), ck, bn,
+            ci1, ci2, co, stride, int(relu), int(bf16), ck, bn, top, bottom,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3_bn_relu launch failed: CUDA error {rc}")
     launches[stride] += 1
+    if top or bottom:
+        halo_launches[stride] += 1
     return y

@@ -11,11 +11,22 @@ fast_body.py:217-287), cell for cell:
   fp32 epilogue, as the JAX package leaves them to XLA einsums;
 * zoomed-cell and aggregation resizes are the constant-matrix contractions
   of ops/resize.py;
+* with fp32 activations the products (1x1 convs, resizes) sum in float64
+  and round once (`_product`, `ops.resize.in_float64`), so their bits do
+  not depend on the shapes the BLAS library is given: a block of an image
+  split over H gets the whole image's;
 * a refine conv over a channel concat hands its two NHWC inputs to the conv
   kernel, which reads them in place (no concat is written).
 
 The weights are folded, and split and packed for the tensor-core conv kernel,
 once by `fold_weights`, not per call.
+
+The same walk runs on an image split over H across ranks: a map is then a
+`parallel.spatial.Block` (this rank's rows, their partition, the exchange),
+every 3x3 conv takes its neighbours' halo rows (the kernel's halo mode),
+every align-corners resize takes its row window (ops/resize.py `*_rows`),
+and the rest is local to the rows. A stride-2 op needs an even block start
+(`row_multiple`).
 """
 
 from __future__ import annotations
@@ -28,7 +39,10 @@ from ..core.plan import NetworkPlan
 from ..kernels.conv import ConvWeights, conv3x3_bn_relu, split_weights
 from ..ops.conv import BatchNorm, Conv
 from ..ops.primitives import FactorizedReduce
-from ..ops.resize import downsample_half, resize_bilinear
+from ..ops.resize import (downsample_half, downsample_half_rows, in_float64,
+                          resize_bilinear, resize_bilinear_rows)
+from ..parallel import spatial
+from ..parallel.spatial import Block
 from .derived import DerivedNet, cell_key
 
 # Weights keep fp32 accuracy whatever the activation dtype: they are a few
@@ -99,6 +113,54 @@ def fold_weights(net: DerivedNet) -> Dict:
     return fw
 
 
+def row_multiple(plan: NetworkPlan) -> int:
+    """Input rows a block of an image split over H must start at a multiple
+    of: the deepest map's stride (the x8 stem, the cells' strides, a zoomed
+    cell's half-size map), so that every stride-2 op meets an even block
+    start."""
+    return max([8] + [c.scale * (2 if c.down or c.op in (2, 4) else 1)
+                      for c in plan.cells])
+
+
+# ---- the walk's operations on a map, or on a Block of one ----
+
+
+def conv3x3(x, p: Folded3x3, stride: int = 1, relu: bool = True, x2=None):
+    """3x3 conv + folded BN (+ReLU) through the conv kernel; on a Block,
+    with its halo rows."""
+    if isinstance(x, Block):
+        return spatial.conv3x3_bn_relu(x, *p, stride=stride, relu=relu, x2=x2)
+    return conv3x3_bn_relu(x, *p, stride=stride, relu=relu, x2=x2)
+
+
+def _local(fn, x, *args, **kw):
+    """fn of a map that reads no other rows than its output's: on a Block,
+    of its rows."""
+    return x.like(fn(x.t, *args, **kw)) if isinstance(x, Block) else fn(
+        x, *args, **kw)
+
+
+def _resize_to(x, like):
+    """Align-corners resize of x to the size (on Blocks, the rows) of
+    `like`."""
+    if isinstance(x, Block):
+        return in_float64(resize_bilinear_rows, x,
+                          (like.height, like.t.shape[2]), like.part)
+    return in_float64(resize_bilinear, x, (like.shape[1], like.shape[2]))
+
+
+def _downsample(x):
+    return in_float64(downsample_half_rows if isinstance(x, Block)
+                      else downsample_half, x)
+
+
+def _cat(xs):
+    """Channel concat."""
+    if isinstance(xs[0], Block):
+        return xs[0].like(torch.cat([x.t for x in xs], dim=-1))
+    return torch.cat(xs, dim=-1)
+
+
 def _epilogue(y: torch.Tensor, scale, bias, relu: bool, dtype) -> torch.Tensor:
     if scale is not None:
         y = y * scale
@@ -108,54 +170,69 @@ def _epilogue(y: torch.Tensor, scale, bias, relu: bool, dtype) -> torch.Tensor:
     return y.to(dtype)
 
 
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w over channels, in fp32; for fp32 x in float64, as
+    `ops.resize.in_float64` runs the resizes."""
+    acc = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return torch.matmul(x.to(acc), w.to(acc))
+
+
 def _conv1x1(x: torch.Tensor, p: Folded1x1, relu: bool = True) -> torch.Tensor:
-    """1x1 conv + folded BN (+ReLU): an fp32 product over channels."""
+    """1x1 conv + folded BN (+ReLU): a product over channels (`_product`)
+    and its epilogue, rounded once to x's dtype."""
     w, scale, bias = p
-    return _epilogue(torch.matmul(x.float(), w), scale, bias, relu, x.dtype)
+    return _epilogue(_product(x, w), scale, bias, relu, x.dtype)
 
 
-def _factorized_reduce(x: torch.Tensor, p) -> torch.Tensor:
+def _factorized_reduce(x, p):
     """'skip' at stride 2 (operations.py:521-526): 1x1 convs at pixel
-    offsets (0,0) and (1,1), stride 2, channel concat, BN, ReLU."""
+    offsets (0,0) and (1,1), stride 2, channel concat, BN, ReLU. On a
+    Block the offsets are global only from an even block start."""
+    if isinstance(x, Block):
+        if x.lo % 2:
+            raise ValueError(f"FactorizedReduce over a block starting at odd "
+                             f"row {x.lo} would sample the wrong pixels")
+        return x.like(_factorized_reduce(x.t, p),
+                      x.part.map(lambda b: b // 2, x.height // 2))
     wa, wb, scale, bias = p["fr"]
-    y = torch.cat([torch.matmul(x[:, 0::2, 0::2].float(), wa),
-                   torch.matmul(x[:, 1::2, 1::2].float(), wb)], dim=-1)
+    y = torch.cat([_product(x[:, 0::2, 0::2], wa),
+                   _product(x[:, 1::2, 1::2], wb)], dim=-1)
     return _epilogue(y, scale, bias, True, x.dtype)
 
 
-def _run_cell(op: int, x: torch.Tensor, p: Dict, stride: int) -> torch.Tensor:
-    """One decoded cell (ops/primitives.py classes) on an NHWC input."""
+def _run_cell(op: int, x, p: Dict, stride: int):
+    """One decoded cell (ops/primitives.py classes) on an NHWC input (or a
+    Block of one)."""
     if op == 0:
         return x if stride == 1 else _factorized_reduce(x, p)
-    h, w = x.shape[1], x.shape[2]
     if op == 1:    # conv
-        return conv3x3_bn_relu(x, *p["c0"], stride=stride)
+        return conv3x3(x, p["c0"], stride)
     if op == 3:    # conv_2x
-        y = conv3x3_bn_relu(x, *p["c0"], stride=stride)
-        return conv3x3_bn_relu(y, *p["c1"], stride=1)
+        return conv3x3(conv3x3(x, p["c0"], stride), p["c1"])
     if op in (2, 4):   # zoomed: /2 -> conv(s) -> BN -> (x2 back) -> ReLU
-        y = downsample_half(x)
+        y = _downsample(x)
         if op == 4:
-            y = conv3x3_bn_relu(y, *p["c0"], stride=1)
-            y = conv3x3_bn_relu(y, *p["c1"], stride=1, relu=stride == 2)
+            y = conv3x3(y, p["c0"])
+            y = conv3x3(y, p["c1"], relu=stride == 2)
         else:
-            y = conv3x3_bn_relu(y, *p["c0"], stride=1, relu=stride == 2)
+            y = conv3x3(y, p["c0"], relu=stride == 2)
         if stride == 1:
-            y = torch.relu(resize_bilinear(y, (h, w)))
+            y = _local(torch.relu, _resize_to(y, x))
         return y
     raise ValueError(f"unknown op {op}")
 
 
-def _refine_3x3(a: torch.Tensor, b: torch.Tensor, p: Folded3x3) -> torch.Tensor:
+def _refine_3x3(a, b, p: Folded3x3):
     """ConvNorm(kernel=3) over the channel concat [a, b], which the conv
     kernel reads from the two tensors."""
-    return conv3x3_bn_relu(a, *p, x2=b)
+    return conv3x3(a, p, x2=b)
 
 
-def fast_body(plan: NetworkPlan, fw: Dict, stem: torch.Tensor) -> torch.Tensor:
+def fast_body(plan: NetworkPlan, fw: Dict, stem):
     """Stem features (1, H8, W8, C) NHWC -> 1/8-resolution class logits
-    (1, H8, W8, classes). Mirrors DerivedNet.forward cell for cell;
-    reference walk: model_seg.py:293-335."""
+    (1, H8, W8, classes); with a Block of the stem features, the Block of
+    the logits. Mirrors DerivedNet.forward cell for cell; reference walk:
+    model_seg.py:293-335."""
     B = plan.num_branch
     outputs = [stem] * B
     by_scale = {8: [stem] * B, 16: [stem] * B, 32: [stem] * B}
@@ -176,21 +253,20 @@ def fast_body(plan: NetworkPlan, fw: Dict, stem: torch.Tensor) -> torch.Tensor:
         o8 = by_scale[8][b]
         if last == 2:
             o16 = by_scale[16][b]
-            out = _conv1x1(by_scale[32][b], fw["arms32"][0])
-            out = resize_bilinear(out, (o16.shape[1], o16.shape[2]))
-            out = _refine_3x3(out, o16, fw["refines32"][0])
-            out = _conv1x1(out, fw["arms32"][1])
-            out = resize_bilinear(out, (o8.shape[1], o8.shape[2]))
-            pred8.append(_refine_3x3(out, o8, fw["refines32"][1]))
+            out = _local(_conv1x1, by_scale[32][b], fw["arms32"][0])
+            out = _refine_3x3(_resize_to(out, o16), o16, fw["refines32"][0])
+            out = _local(_conv1x1, out, fw["arms32"][1])
+            pred8.append(_refine_3x3(_resize_to(out, o8), o8,
+                                     fw["refines32"][1]))
         elif last == 1:
-            out = _conv1x1(by_scale[16][b], fw["arms16"])
-            out = resize_bilinear(out, (o8.shape[1], o8.shape[2]))
-            pred8.append(_refine_3x3(out, o8, fw["refines16"]))
+            out = _local(_conv1x1, by_scale[16][b], fw["arms16"])
+            pred8.append(_refine_3x3(_resize_to(out, o8), o8,
+                                     fw["refines16"]))
         else:
             pred8.append(o8)
 
     # FFM: 1x1 ConvBnRelu over the branch concat (seg_oprs.py:181-225)
-    y = _conv1x1(torch.cat(pred8, dim=-1), fw["ffm"])
+    y = _local(_conv1x1, _cat(pred8), fw["ffm"])
     # Head: 3x3 ConvBnRelu -> biased 1x1 to classes (seg_oprs.py:228-274)
-    y = conv3x3_bn_relu(y, *fw["head3"])
-    return _conv1x1(y, fw["cls"], relu=False)
+    y = conv3x3(y, fw["head3"])
+    return _local(_conv1x1, y, fw["cls"], relu=False)

@@ -4,6 +4,10 @@ Counterpart of the JAX package's models/infer.py. The five stem convs, every
 3x3 conv of the body and the head run the hand-written conv kernel
 (kernels/conv.py); the class map comes from the fused upsample-argmax kernel
 (kernels/fused.py), so full-resolution logits are never written for it.
+
+`.logits` also runs on an image split over H across ranks: given this rank's
+`parallel.spatial.Block` of the image, it returns its Block of the
+full-resolution logits, every conv in halo mode (models/fast_body.py).
 """
 
 from __future__ import annotations
@@ -14,22 +18,24 @@ from typing import Dict, Sequence, Union
 import torch
 
 from ..core.plan import NetworkPlan
-from ..kernels.conv import ConvWeights, conv3x3_bn_relu
+from ..kernels.conv import ConvWeights
 from ..kernels.fused import upsample8_argmax, upsample8_argmax_plain
 from ..ops.conv import Conv
-from ..ops.resize import scale_by
+from ..ops.resize import in_float64, scale_by, scale_by_rows
+from ..parallel.spatial import Block
 from .derived import DerivedNet
-from .fast_body import Folded3x3, fast_body, fold_weights
+from .fast_body import Folded3x3, conv3x3, fast_body, fold_weights, row_multiple
 
 
-def fast_stem(stem: Sequence[Folded3x3], x: torch.Tensor) -> torch.Tensor:
+def fast_stem(stem: Sequence[Folded3x3], x):
     """The 5 stem convs (ConvNorm + 2x BasicResidual2x, derived.Stem)
     through the conv kernel: stride 2 at stage0 and at the stage1/stage2
-    entries. x: (1, H, W, 3) in the compute dtype -> (1, H/8, W/8, C)."""
-    y = conv3x3_bn_relu(x, *stem[0], stride=2)
+    entries. x: (1, H, W, 3) in the compute dtype -> (1, H/8, W/8, C), or
+    a Block of it -> the Block of the output."""
+    y = conv3x3(x, stem[0], stride=2)
     for i in (1, 3):
-        y = conv3x3_bn_relu(y, *stem[i], stride=2)
-        y = conv3x3_bn_relu(y, *stem[i + 1], stride=1)
+        y = conv3x3(y, stem[i], stride=2)
+        y = conv3x3(y, stem[i + 1])
     return y
 
 
@@ -50,7 +56,10 @@ class InferenceRunner:
                     of the 1/8 logits (reference contract)
     .classmap(x) -> (1, H, W) int32 class map from the fused upsample-argmax
 
-    x is (1, H, W, 3) NHWC. `fast_body_enabled=False` runs the kernel stem
+    x is (1, H, W, 3) NHWC. `.logits` also takes this rank's
+    `parallel.spatial.Block` of an image split over H (blocks starting at
+    multiples of `row_multiple` input rows) and returns its Block of the
+    logits; the kernel path only. `fast_body_enabled=False` runs the kernel stem
     and the plain body of `net`; `fast_stem_enabled=False` runs `net`
     alone, plain throughout (its class map too), which makes it the
     reference the kernel path is held against. BN folding and weight
@@ -78,9 +87,22 @@ class InferenceRunner:
                 if isinstance(m, Conv):
                     m.to(dtype)
 
+    @property
+    def row_multiple(self) -> int:
+        """Input rows a block of an image split over H starts at a
+        multiple of (`fast_body.row_multiple`)."""
+        return row_multiple(self.plan)
+
     @torch.inference_mode()
-    def p8(self, x: torch.Tensor) -> torch.Tensor:
+    def p8(self, x):
         """1/8-resolution logits (1, H/8, W/8, classes)."""
+        if isinstance(x, Block):
+            if not self.fast_body_enabled:
+                raise ValueError("a Block (an image split over H) runs the "
+                                 "kernel path only")
+            t = x.t.to(device=self.device, dtype=self.dtype).contiguous()
+            return fast_body(self.plan, self.folded,
+                             fast_stem(self.folded["stem"], x.like(t)))
         x = x.to(device=self.device, dtype=self.dtype).contiguous()
         if not self.fast_stem_enabled:
             return self.net(x, upsample=False)
@@ -90,8 +112,10 @@ class InferenceRunner:
         return self.net(x, stem_out=stem, upsample=False)
 
     @torch.inference_mode()
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return scale_by(self.p8(x), 8)
+    def logits(self, x):
+        p8 = self.p8(x)
+        return in_float64(scale_by_rows if isinstance(p8, Block)
+                          else scale_by, p8, 8)
 
     @torch.inference_mode()
     def classmap(self, x: torch.Tensor) -> torch.Tensor:

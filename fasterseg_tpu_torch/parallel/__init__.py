@@ -1,11 +1,12 @@
 """Data parallelism: ranks over `torch.distributed`, replicated weights, a
 sharded batch and the global-batch reductions (`mesh.py`), and a dry run of
-the distill and search steps on N ranks (`dryrun.py`)."""
+the distill and search steps on N ranks (`dryrun.py`); spatial
+partitioning, each image split over H with its halo and row-window
+exchanges (`spatial.py`)."""
 
 from .mesh import (
     DATA_AXIS,
     SPATIAL_AXIS,
-    SPATIAL_NOT_PORTED,
     Mesh,
     init_mesh,
     launch,

@@ -15,6 +15,10 @@ reductions are made explicitly where that function has one:
   (`train.loop.train_step`, `search.loop.SearchEngine`);
 * evaluation counts (`eval.evaluator.Evaluator`).
 
+A mesh on the spatial axis (`make_mesh(axis_names=(SPATIAL_AXIS,))`) is the
+same group of ranks, used to split each image over H instead of sharding
+the batch (`parallel/spatial.py`, `Evaluator(spatial=True)`).
+
 Only `all_reduce`, `broadcast` and `barrier` are called, so the same code
 runs under NCCL and under gloo on CUDA tensors (gloo has no CUDA
 `all_gather`): a gather writes each rank's slice into a zeroed
@@ -37,19 +41,14 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 
-SPATIAL_NOT_PORTED = (
-    "spatial partitioning (images split over H across ranks) is not ported: "
-    "it needs a halo exchange around every 3x3 conv and across the "
-    "align-corners resizes (ROADMAP Queue 1, item 1: spatial eval)")
-
 # how long a collective (or joining the group) waits for the other ranks
 TIMEOUT = datetime.timedelta(seconds=600)
 
 
 class Mesh:
-    """This process's place in a data-parallel group: its rank, the world
-    size, the backend and the device it computes on. `bytes_reduced`
-    counts the bytes this rank has passed to `all_reduce`."""
+    """This process's place in a group of ranks: its rank, the world size,
+    the backend and the device it computes on. `bytes_reduced` counts the
+    bytes this rank has passed to `all_reduce`."""
 
     def __init__(self, rank: int, world: int, backend: str,
                  device: Union[str, torch.device]):
@@ -168,10 +167,13 @@ def make_mesh(n_devices: Optional[int] = None,
               axis_names: Sequence[str] = (DATA_AXIS,),
               device: Optional[Union[str, torch.device]] = None) -> Mesh:
     """The mesh of this process in the process group it has joined (the
-    JAX package's `make_mesh`, over ranks): a data axis only. `device`
-    defaults to the current card under NCCL and to the CPU under gloo."""
-    if tuple(axis_names) != (DATA_AXIS,):
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    JAX package's `make_mesh`, over ranks), on one axis: `DATA_AXIS` or
+    `SPATIAL_AXIS` (the same ranks; `Evaluator(spatial=True)` splits images
+    over them). `device` defaults to the current card under NCCL and to the
+    CPU under gloo."""
+    if tuple(axis_names) not in ((DATA_AXIS,), (SPATIAL_AXIS,)):
+        raise ValueError(f"a mesh has one axis, {DATA_AXIS!r} or "
+                         f"{SPATIAL_AXIS!r}, not {tuple(axis_names)}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: start the "
                            "ranks with `launch` or join with `init_mesh`")

@@ -192,8 +192,9 @@ class TrainSession:
                  mesh=None, spatial: bool = False) -> EvalResult:
         """Whole-image eval of the trained network with the config's
         protocol, through `runner()` rebuilt from the current weights;
-        sharded over the session's mesh unless `mesh` names another.
-        `spatial` raises: H-partitioned eval is not ported."""
+        sharded over the session's mesh unless `mesh` names another, or with
+        `spatial` each image split over H across its ranks (the runner's
+        kernel forward on blocks, every conv with its halo rows)."""
         c = self.config
         ev = Evaluator(val_dataset, c.data.num_classes, c.data.image_mean,
                        c.data.image_std, self.runner().logits,

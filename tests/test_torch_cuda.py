@@ -110,6 +110,68 @@ def test_conv_kernel_two_inputs(cuda_device, gen, H, W, c1, c2, co):
                                rtol=1e-4, atol=1e-4)
 
 
+# Halo mode (a block of an image split over H, a neighbour's row above and/or
+# below it): every route in fp32 (the CUDA-core kernel) and bf16 (the Ci = 3
+# stem kernel; the wgmma kernel with one and two inputs, resident weights
+# and a split K), both strides, odd blocks at stride 2 that read the row
+# below, and blocks at the image's top or bottom (one halo).
+@pytest.mark.parametrize("h,W,ci,ci2,co,stride,halo", [
+    (64, 128, 3, 0, 32, 2, (1, 0)), (33, 130, 3, 0, 48, 2, (1, 1)),
+    (32, 64, 64, 0, 64, 1, (1, 1)), (17, 33, 32, 0, 64, 2, (1, 1)),
+    (40, 64, 32, 0, 64, 2, (1, 0)), (16, 32, 64, 32, 64, 1, (1, 1)),
+    (136, 260, 64, 0, 64, 1, (0, 1)), (16, 32, 256, 0, 256, 1, (1, 0)),
+    (9, 300, 16, 0, 19, 1, (1, 1)), (8, 24, 20, 0, 40, 1, (0, 1))])
+def test_conv_kernel_halo_mode(cuda_device, gen, h, W, ci, ci2, co, stride,
+                               halo):
+    top, bottom = halo
+    x, w, s, b = _conv_args(gen, h + top + bottom, W, ci + ci2, co,
+                            cuda_device)
+    key = f"conv3x3_bn_relu_s{stride}"
+    for dtype, tol in ((torch.float32, 1e-4 if stride == 1 else 2e-4),
+                       (torch.bfloat16, 2e-2)):
+        xd = x.to(dtype)
+        xa, x2 = ((xd, None) if not ci2 else
+                  (xd[..., :ci].contiguous(), xd[..., ci:].contiguous()))
+        before = kernels.halo_launch_counts()[key]
+        got = conv3x3_bn_relu(xa, w, s, b, stride=stride, x2=x2, halo=halo)
+        torch.cuda.synchronize()
+        assert kernels.halo_launch_counts()[key] == before + 1
+        assert got.shape[1] == (h - 1) // stride + 1
+        want = conv3x3_bn_relu_plain(xd.float(), w, s, b, stride=stride,
+                                     halo=halo)
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+def test_spatial_logits_on_card_match_unsplit(cuda_device):
+    """The student's fp32 logits of a 256x128 image split over two ranks
+    (threads of this process sharing the card, `_torch_spatial_workers`)
+    equal its unsplit logits bit for bit (the conv kernel's halo mode reads
+    the rows the whole image's conv reads; the products sum in float64),
+    each rank's convs in halo mode."""
+    from _torch_spatial_workers import on_threads
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            student_plan)
+    from fasterseg_tpu_torch.parallel.spatial import Block, partition
+    from fasterseg_tpu_torch.utils import init_random_
+    plan = student_plan()
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), 0),
+                             dtype=torch.float32, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 256, 128, 3)).astype(np.float32)).to(cuda_device)
+    want = runner.logits(x)
+    part = partition(256, 2, runner.row_multiple)
+    kernels.reset_launch_counts()
+
+    def rank(ex):
+        lo, hi = part.block(ex.rank)
+        return runner.logits(Block(x[:, lo:hi].contiguous(), part, ex)).t
+
+    got = torch.cat(on_threads(2, rank), dim=1)
+    torch.cuda.synchronize()
+    assert sum(kernels.halo_launch_counts().values()) > 0
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
 def test_conv_kernel_repeats_bit_for_bit(cuda_device, gen):
     """A split K adds its partial sums in a fixed order."""
     x, w, s, b = _conv_args(gen, 16, 32, 256, 256, cuda_device)

@@ -43,6 +43,7 @@ def test_port_imports_without_jax():
     names = _modules()
     assert "fasterseg_tpu_torch.models.fast_body" in names
     assert "fasterseg_tpu_torch.kernels.build" in names
+    assert "fasterseg_tpu_torch.parallel.spatial" in names
     out = subprocess.run([sys.executable, "-c", _PROBE, *names], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -36,12 +36,12 @@ from fasterseg_tpu.train.loop import (create_train_state,
                                       make_optimizer as jax_make_optimizer,
                                       make_train_step)
 import _torch_parallel_workers as W
-from fasterseg_tpu_torch.parallel import (SPATIAL_AXIS, launch, make_mesh,
-                                          rank_devices)
+from fasterseg_tpu_torch.parallel import launch, rank_devices
 from test_torch_eval import NEAR_TIE, _jax_multiscale_probs
 from test_torch_train_step import OPT, _jax_state_dict, _nets, _teacher_plans
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ASSETS = os.path.join(REPO, "tests", "assets")
 RANKS = 2
 BN_ATOL = LOSS_ATOL = 1e-12
 LOSS_RTOL = 1e-12
@@ -283,18 +283,33 @@ def test_evaluator_matches_jax_mesh(ranks):
 # ---- options and entry points ----
 
 
-def test_spatial_raises_naming_the_roadmap_item(tmp_path):
+def test_cli_eval_spatial_prints_the_one_rank_table(tmp_path, capfd):
+    """cli/eval.py --devices 2 --spatial --device cpu: two gloo ranks split
+    each image of a ProcCity file list over H; rank 0 prints the table
+    that the one-process run prints."""
+    pytest.importorskip("cv2")
     from fasterseg_tpu_torch.cli import eval as cli_eval
-    from fasterseg_tpu_torch.eval import Evaluator
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Evaluator(W.shared_dataset(), 8, W.MEAN, W.STD, W.SharedForward(),
-                  device="cpu", spatial=True)
-    with pytest.raises(NotImplementedError, match="halo exchange"):
-        cli_eval.main(["--arch-dir", "tests/assets", "--ckpt", "unused",
-                       "--data-root", str(tmp_path), "--device", "cpu",
-                       "--devices", "2", "--spatial"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        make_mesh(2, axis_names=(SPATIAL_AXIS,))
+    from fasterseg_tpu_torch.core.config import cityscapes_student_config
+    from fasterseg_tpu_torch.data.procgen import write_dataset
+    from fasterseg_tpu_torch.train import TrainSession
+    import dataclasses
+    cfg = dataclasses.replace(cityscapes_student_config(), is_eval=True)
+    TrainSession(cfg, ASSETS, device="cpu").save(str(tmp_path / "run"))
+    root = write_dataset(str(tmp_path / "data"), n_train=1, n_val=2,
+                         hw=(128, 256))
+    os.replace(os.path.join(root, "val.txt"),
+               os.path.join(root, "cityscapes_val_fine.txt"))
+    argv = ["--arch-dir", ASSETS, "--device", "cpu", "--ckpt",
+            str(tmp_path / "run" / "weights1_ckpt"), "--data-root", root]
+    one = cli_eval.main(argv)
+    table = capfd.readouterr().out
+    split = cli_eval.main(argv + ["--devices", "2", "--spatial"])
+    printed = capfd.readouterr().out
+    assert "mean_IU" in table
+    np.testing.assert_array_equal(split.hist, one.hist)
+    assert table.strip().splitlines()[-8:] == printed.strip().splitlines()[-8:]
+    with pytest.raises(SystemExit):
+        cli_eval.main(argv + ["--spatial"])
 
 
 def test_devices_beyond_the_cards_raise(monkeypatch, tmp_path):

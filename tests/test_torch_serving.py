@@ -110,7 +110,6 @@ def test_runner_passes_prepared_weights_and_two_part_refines(monkeypatch):
     import types
 
     import fasterseg_tpu_torch.models.fast_body as fast_body
-    import fasterseg_tpu_torch.models.infer as infer
     from fasterseg_tpu_torch.kernels import ConvWeights
     _, _, _, tplan, net, x = _both("student")
     runner = InferenceRunner(tplan, net, dtype=torch.float32, device="cpu")
@@ -133,7 +132,6 @@ def test_runner_passes_prepared_weights_and_two_part_refines(monkeypatch):
             return torch.cat(tensors, dim=dim)
 
     monkeypatch.setattr(fast_body, "conv3x3_bn_relu", spy)
-    monkeypatch.setattr(infer, "conv3x3_bn_relu", spy)
     monkeypatch.setattr(fast_body, "torch", TorchSpy("torch"))
     monkeypatch.setattr(fast_body, "_factorized_reduce", lambda x, p: (
         reduces.append(1), real_reduce(x, p))[1])
