@@ -4,8 +4,10 @@ hold each against its plain version, serve the shipped student and teacher
 at 1024x2048 through the kernels, evaluate the student on ProcCity scenes
 through them, train the teacher and then the student from it, and pretrain and
 search the supernet, then decode the searched student and run it through
-the kernels, measure the latency table, and run the ProcCity mIoU study
-whose trained student then holds the bf16 and int8 class-map bars.
+the kernels, measure the latency table, run the ProcCity mIoU study whose
+trained student then holds the bf16 and int8 class-map bars, and run the
+self-search chain's stages (bf16 pretrain and search, training, fps,
+report) on the study's scenes.
 
     python3 chip_smoke.py [--seed N] [--miou-epochs N]
     python3 chip_smoke.py --agreement-seeds 0,1,2,3,4
@@ -13,6 +15,7 @@ whose trained student then holds the bf16 and int8 class-map bars.
     python3 chip_smoke.py --latency-only [--detail-dir DIR]
     python3 chip_smoke.py --study-only [--miou-epochs N]
     python3 chip_smoke.py --distributed-only
+    python3 chip_smoke.py --self-search-only
 
 The second form builds the kernels and prints only the class-map agreement
 readings of student and teacher for each seed, with the serving phases'
@@ -22,7 +25,8 @@ runs the latency phase (with DIR, it keeps the swept table and its
 calibration there as latency_swept_h100_lut*.json); the fifth builds them
 and runs only the miou, bf16_trained and int8 phases (`--miou-epochs 40`:
 the 40 + 40 epoch study of MIOU.md); the sixth builds them, renders the
-scenes and runs only the distributed phase.
+scenes and runs only the distributed phase; the seventh builds them, renders
+the study's scenes and runs only the self_search phase.
 
 Run from the root of a checkout. Phases, one JSON line each:
 
@@ -152,6 +156,24 @@ Run from the root of a checkout. Phases, one JSON line each:
                  package's, bit for bit), the kernel path is held instead
                  to no more than 0.05 pp below that arithmetic's agreement,
                  and the floor's miss is listed apart with both readings
+  self_search    cli/self_search.py's stages on the card at the chain's
+                 configuration (16 layers, Fch 12, five widths, 256x512, 8
+                 classes) on the miou phase's scenes, into a temporary
+                 directory: a bf16 pretrain epoch and a bf16 search epoch of
+                 one step each (finite losses; pretrain moves every conv
+                 weight and no arch tensor, search every arch tensor but the
+                 teacher's 1-wide ratios; step ms), validation on 2 val
+                 scenes (25 mIoUs in [0, 1]), the band in band.json equal
+                 to the committed H100 table's, the searched and the
+                 shipped (control) teacher and student an epoch of two
+                 steps each, fps (`.logits` of the searched student at
+                 1024x2048 in bf16 through the kernels, conv launches > 0,
+                 serving_path "kernels"), the report with every section;
+                 then the JAX chain's own searched student
+                 (evidence/self_search_r4, 8 classes) through all three
+                 kernels: Evaluator hist within 1e-4 of the plain fp32
+                 net, fp32 class map >= 99.8 %, bf16 within the serving
+                 rule. Stage seconds
 
 Then the kernels' summary line, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}. Any failed
@@ -160,7 +182,9 @@ host without CUDA. Needs no JAX.
 """
 
 import argparse
+import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -1842,10 +1866,11 @@ def phase_distributed(seed: int, pool, eval_scenes) -> dict:
 
 SEARCH_POOL = 8                    # ProcCity scenes at 512x1024 (the x2
                                    # down-sampled frames search crops)
-SEARCH_NITERS = 2                  # steps an epoch in the search phase
-# timed steps after the epoch's (which warm cuDNN's autotuning up): a
-# search step issues ~670 k launches and takes ~20 s (PERF.md), so few
-SEARCH_TIMED = 2
+# steps an epoch in the search phase, each timed (a search step issues
+# ~670 k launches and takes ~20 s, PERF.md); the one step includes cuDNN's
+# autotuning, a small share: in an earlier run a pretrain epoch of two
+# steps took 25.0 s where a later step took 12.0 s (PERF.md)
+SEARCH_NITERS = 1
 VAL_HW = (512, 1024)               # SearchConfig's eval size
 
 
@@ -1892,26 +1917,46 @@ def _loader_ms(loader) -> float:
     return statistics.median(times)
 
 
-def _timed_steps(step, batch: int) -> dict:
-    """ms per step (CUDA events around `step()`, the median of SEARCH_TIMED
-    with min/max; the epoch before them is the warm-up), images/s and the
-    peak memory over those steps."""
+@contextlib.contextmanager
+def _step_times(engine):
+    """Inside it, each `arch_step` and `weight_step` the engine makes is
+    timed by CUDA events (ms, in order, under the method's name), and the
+    peak memory counter starts from 0."""
     import torch
+    times = {"arch_step": [], "weight_step": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+            return out
+        return call
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(SEARCH_TIMED):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
-    return {"step_ms": {"median": ms, "min": min(times), "max": max(times),
-                        "reps": len(times)},
-            "images_per_s": batch / ms * 1e3,
+    for name in times:
+        setattr(engine, name, timed(name, getattr(engine, name)))
+    try:
+        yield times
+    finally:
+        for name in times:
+            delattr(engine, name)
+
+
+def _search_step_readings(times, batch: int) -> dict:
+    """ms of each step of an epoch (an arch step's and a weight step's sum
+    where both ran), the last one's images/s, and the peak memory over
+    them."""
+    import torch
+    steps = [a + w for a, w in zip(times["arch_step"], times["weight_step"])
+             ] if times["arch_step"] else list(times["weight_step"])
+    return {"step_ms": {"per_step": steps, "last": steps[-1]},
+            "images_per_s": batch / steps[-1] * 1e3,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -2017,25 +2062,33 @@ def _search_card_vs_cpu(seed: int, pool) -> dict:
             "seconds": seconds}
 
 
-def _decoded_student(engine, seed: int, eval_scenes, lasts) -> dict:
-    """The searched student decoded (numpy_arch -> decode_network ->
-    build_plan -> DerivedNet with seeded random weights) and run through
-    the kernels in fp32: Evaluator over the eval scenes and one class map,
-    against the plain fp32 net."""
+def _searched_plan(engine, lasts):
+    """The engine's student decoded (numpy_arch -> decode_network ->
+    build_plan) at branches `lasts`."""
+    from fasterseg_tpu_torch.core.genotype import decode_network
+    from fasterseg_tpu_torch.core.plan import build_plan
+    c = engine.config
+    genos = decode_network(engine.numpy_arch(1), engine.wml, c.layers,
+                           ignore_skip=False)
+    return build_plan(genos, lasts, Fch=c.Fch, num_classes=c.num_classes,
+                      stem_head_width=c.stem_head_width[1])
+
+
+def _decoded_student(plan, seed: int, eval_scenes, what: str = "search",
+                     bf16: bool = False) -> dict:
+    """A decoded student (DerivedNet of `plan` with seeded random weights)
+    run through the kernels in fp32: Evaluator over the eval scenes and one
+    class map, against the plain fp32 net; with `bf16`, also a bf16 class
+    map held to the serving phases' rule (`_agreement`)."""
     import torch
     from fasterseg_tpu_torch import kernels
     from fasterseg_tpu_torch.core import DataConfig
-    from fasterseg_tpu_torch.core.genotype import decode_network
-    from fasterseg_tpu_torch.core.plan import build_plan
     from fasterseg_tpu_torch.data.preprocess import eval_preprocess
     from fasterseg_tpu_torch.eval import Evaluator
     from fasterseg_tpu_torch.models import DerivedNet, InferenceRunner
     from fasterseg_tpu_torch.utils import init_random_
-    c, data = engine.config, DataConfig()
-    genos = decode_network(engine.numpy_arch(1), engine.wml, c.layers,
-                           ignore_skip=False)
-    plan = build_plan(genos, lasts, Fch=c.Fch, num_classes=c.num_classes,
-                      stem_head_width=c.stem_head_width[1])
+    data = DataConfig()
+    lasts = list(plan.lasts)
     net = init_random_(DerivedNet(plan), seed)
     kern = InferenceRunner(plan, net, dtype=torch.float32, device=DEVICE)
     plain = InferenceRunner(plan, net, dtype=torch.float32, device=DEVICE,
@@ -2043,32 +2096,42 @@ def _decoded_student(engine, seed: int, eval_scenes, lasts) -> dict:
     x = torch.from_numpy(eval_preprocess(
         eval_scenes[0]["data"], data.image_mean, data.image_std)[None]
     ).to(DEVICE)
-    ev = lambda fwd: Evaluator(eval_scenes, data.num_classes,
+    ev = lambda fwd: Evaluator(eval_scenes, plan.num_classes,
                                data.image_mean, data.image_std, fwd,
                                ignore_label=data.ignore_label, device=DEVICE)
+    k16 = (InferenceRunner(plan, net, dtype=torch.bfloat16, device=DEVICE)
+           if bf16 else None)
     # the main path: the counts are 0 just before and read just after
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     res_k = ev(kern.logits).run()
     cm = kern.classmap(x)
+    cm16 = k16.classmap(x) if bf16 else None
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     for k, n in launches.items():
-        check(n > 0, f"search: decoded student: kernel {k} was not launched")
+        check(n > 0, f"{what}: decoded student: kernel {k} was not "
+                     f"launched")
     res_p = ev(plain.logits).run()
     d = _hist_d(res_k.hist, res_p.hist)
     check(int(res_k.hist.sum()) == int(res_p.hist.sum()) > 0,
-          "search: decoded student: hist sums")
-    check(d <= EVAL_DIFF_FP32, f"search: decoded student: d = {d}")
+          f"{what}: decoded student: hist sums")
+    check(d <= EVAL_DIFF_FP32, f"{what}: decoded student: d = {d}")
     agree = (cm == plain.classmap(x)).float().mean().item()
     check(agree >= AGREE_FP32,
-          f"search: decoded student class map agrees on {agree}")
-    return {"lasts": list(lasts), "ops": [list(g.ops) for g in
-                                          plan.genotypes],
-            "images": f"{len(eval_scenes)}x{HW[0]}x{HW[1]}",
-            "launches": launches, "d_kernels_vs_plain": d,
-            "classmap_agree_fp32_kernels_vs_plain": agree,
-            "miou": res_k.mean_iu}
+          f"{what}: decoded student class map agrees on {agree}")
+    row = {"lasts": lasts, "ops": [list(g.ops) for g in plan.genotypes],
+           "widths": [list(g.widths) for g in plan.genotypes],
+           "num_classes": plan.num_classes,
+           "images": f"{len(eval_scenes)}x{HW[0]}x{HW[1]}",
+           "launches": launches, "d_kernels_vs_plain": d,
+           "classmap_agree_fp32_kernels_vs_plain": agree,
+           "miou": res_k.mean_iu}
+    if bf16:
+        del k16
+        row["bf16"] = _agreement(f"{what}: decoded student", plan, net, x,
+                                 cm16)
+    return row
 
 
 def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
@@ -2126,7 +2189,9 @@ def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         te = time.perf_counter()
-        stats = engine.train_epoch(ld, None, 0, True, False, SEARCH_NITERS)
+        with _step_times(engine) as times:
+            stats = engine.train_epoch(ld, None, 0, True, False,
+                                       SEARCH_NITERS)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - te
         launches = kernels.launch_counts()
@@ -2140,20 +2205,17 @@ def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
         check(all(torch.equal(a, t) for a, (_, t) in
                   zip(arch_before, _arch_tensors(engine))),
               "search pretrain: arch parameters moved")
-        x, y = batch(ld)
-        gen = torch.Generator().manual_seed(seed)
         row["pretrain"] = {
             "batch": cfg_pre.data.batch_size,
             "crop": [cfg_pre.data.image_height, cfg_pre.data.image_width],
             "losses": stats["losses"], "step_launches": launches,
             "epoch_seconds": epoch_s, "conv_weights_moved": len(convs),
-            **_timed_steps(lambda: engine.weight_step(x, y, True, gen),
-                           cfg_pre.data.batch_size),
+            **_search_step_readings(times, cfg_pre.data.batch_size),
             "loader_ms_per_batch": _loader_ms(ld),
             "loader_pool": ld.pool_size}
     finally:
         ld.close()
-    del engine, before, x, y
+    del engine, before
     torch.cuda.empty_cache()
     part("pretrain")
 
@@ -2165,9 +2227,11 @@ def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         te = time.perf_counter()
-        stats = engine.train_epoch(lw, la, 0, False, True, SEARCH_NITERS)
+        with _step_times(engine) as times:
+            stats = engine.train_epoch(lw, la, 0, False, True, SEARCH_NITERS)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - te
+        readings = _search_step_readings(times, cfg.data.batch_size)
         launches = kernels.launch_counts()
         for k in ("loss", "loss_arch", "loss_latency",
                   "latency_supernet_ms"):
@@ -2219,8 +2283,7 @@ def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
             "latency_supernet_ms": stats["latency_supernet_ms"],
             "loss_latency_vs_estimator": [got, want],
             "step_launches": launches, "arch_moved": moved,
-            "epoch_seconds": epoch_s,
-            **_timed_steps(search_step, cfg.data.batch_size),
+            "epoch_seconds": epoch_s, **readings,
             "loader_ms_per_batch": {"weight": _loader_ms(lw),
                                     "arch": _loader_ms(la)}}
         # one step with remat off: its peak memory beside the timed steps'
@@ -2275,8 +2338,8 @@ def phase_search(seed: int, eval_scenes, profile: bool = False) -> dict:
     row["controller"] = {"band": [cfg.fps_min[1], cfg.fps_max[1]],
                          "weight": [w0, w]}
     part("validate_fps")
-    row["decoded_student"] = _decoded_student(engine, seed, eval_scenes[:2],
-                                              lasts)
+    row["decoded_student"] = _decoded_student(
+        _searched_plan(engine, lasts), seed, eval_scenes[:2])
     part("decoded_student")
 
     # ---- resume: save, restore into a new engine, bit for bit
@@ -2572,8 +2635,9 @@ def phase_miou(epochs: int, save_dir: str):
     """The ProcCity mIoU study (cli/miou_study.py) on the card: the teacher
     for `epochs` epochs, then the student from it for `epochs` epochs, each
     evaluated after every epoch through the conv kernels (fp32 runner).
-    Returns (row, student session, val scenes); the row's `band_misses`
-    are the steps outside the band, which `phase_study` holds."""
+    Returns (row, student session, (train, val) scenes); the row's
+    `band_misses` are the steps outside the band, which `phase_study`
+    holds."""
     import torch
     from fasterseg_tpu_torch import kernels
     from fasterseg_tpu_torch.cli import miou_study as ms
@@ -2645,7 +2709,7 @@ def phase_miou(epochs: int, save_dir: str):
     row["seconds"] = time.perf_counter() - t0
     row["gpu"] = gpu_line()
     emit(row)
-    return row, session, val
+    return row, session, (train, val)
 
 
 def phase_bf16_trained(seed: int, plan, net, val, int8_run) -> dict:
@@ -2765,10 +2829,12 @@ def phase_study(seed: int, epochs: int) -> dict:
     """miou, then bf16_trained and int8 on its student (one run of
     `int8_check.check` serves both); the checkpoints in a temporary
     directory. The three phases' bars are held once all three have printed
-    their readings, so one run reads every bar; a miss fails the script."""
+    their readings, so one run reads every bar; a miss fails the script.
+    Returns their rows and the study's (train, val) scenes."""
     from fasterseg_tpu_torch.cli import int8_check as ic
     with tempfile.TemporaryDirectory() as tmp:
-        miou, session, val = phase_miou(epochs, tmp)
+        miou, session, scenes = phase_miou(epochs, tmp)
+        val = scenes[1]
         plan, net = session.plans[session.student_idx], session.model
         t0 = time.perf_counter()
         run = ic.check(plan, net, val, device=DEVICE)
@@ -2813,7 +2879,234 @@ def phase_study(seed: int, epochs: int) -> dict:
     emit({"phase": "study_bars", "check_s": check_s, "missed": missed,
           "missed_by_the_jax_arithmetic_too": recorded})
     check(not missed, "study bars missed: " + "; ".join(missed))
-    return {"miou": miou, "bf16_trained": bf16, "int8": int8}
+    return {"miou": miou, "bf16_trained": bf16, "int8": int8,
+            "scenes": scenes}
+
+
+SELF_SEARCH_NITERS = 1             # steps of the pretrain and search epochs
+SELF_SEARCH_TRAIN_NITERS = 2       # steps of each train stage's epoch
+SELF_SEARCH_VAL = 2                # val scenes a validation
+R4_ARCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "evidence", "self_search_r4", "search", "arch_1.npz")
+
+
+@contextlib.contextmanager
+def _recorded_epochs():
+    """Inside it, each `SearchEngine.train_epoch` (of the engines the
+    stages build) records, before it runs, the engine's conv weights and
+    arch tensors, and times its steps (`_step_times`)."""
+    import torch
+    from fasterseg_tpu_torch.search import SearchEngine
+    records = []
+    original = SearchEngine.train_epoch
+
+    def train_epoch(self, *args, **kwargs):
+        rec = {"convs": {k: v.detach().clone() for k, v in
+                         self.model.named_parameters() if v.ndim == 4},
+               "arch": [(k, t.detach().clone())
+                        for k, t in _arch_tensors(self)]}
+        with _step_times(self) as times:
+            rec["stats"] = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["readings"] = _search_step_readings(
+            times, self.config.data.batch_size)
+        records.append(rec)
+        return rec["stats"]
+
+    SearchEngine.train_epoch = train_epoch
+    try:
+        yield records
+    finally:
+        SearchEngine.train_epoch = original
+
+
+def _val_mious(save_dir: str) -> dict:
+    """The `mIoU/val_*` scalars a search stage wrote."""
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return {r["tag"]: r["value"] for r in rows
+            if r["tag"].startswith("mIoU/val_")}
+
+
+def _config_fields_differ(a, b, prefix: str = "") -> list:
+    """Names of the dataclass fields in which two configs differ."""
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            out += _config_fields_differ(x, y, f"{prefix}{f.name}.")
+        elif x != y:
+            out.append(f"{prefix}{f.name}")
+    return out
+
+
+def phase_self_search(seed: int, train, val, eval_scenes,
+                      search_row=None) -> dict:
+    """cli/self_search.py's stages on the card at the chain's configuration
+    (16 layers, Fch 12, five widths, ProcCity 256x512, 8 classes, bf16
+    search) at reduced lengths, on the miou phase's 160 + 40 scenes: a
+    pretrain epoch and a search epoch of SELF_SEARCH_NITERS steps, the
+    searched teacher and student and the shipped control arms an epoch of
+    SELF_SEARCH_TRAIN_NITERS steps each, validation on SELF_SEARCH_VAL val
+    scenes, fps and the report, into a temporary directory. Then the JAX
+    chain's own searched student (evidence/self_search_r4) through all
+    three kernels at 1024x2048. `search_row`: the search phase's row, whose
+    fp32 step ms are printed beside the bf16 ones (a reading: the
+    configurations differ in classes and crops)."""
+    import torch
+    from fasterseg_tpu_torch.cli import miou_study as ms
+    from fasterseg_tpu_torch.cli import self_search as ss
+    from fasterseg_tpu_torch.latency import fps_band, h100_lut
+    t0 = time.perf_counter()
+    # the CLI autotunes cuDNN's convs (for runs of thousands of steps); a
+    # stage of one step would spend more on the autotuning than it saves
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    row = {"phase": "self_search", "stage_seconds": {}}
+    mark = [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        row["stage_seconds"][name] = now - mark[0]
+        mark[0] = now
+
+    with tempfile.TemporaryDirectory() as out:
+        setup = ss.Setup(out=out, device=DEVICE, niters=SELF_SEARCH_NITERS,
+                         max_eval_items=SELF_SEARCH_VAL)
+        # ---- pretrain: every conv weight moves, no arch tensor does
+        with _recorded_epochs() as rec:
+            engine = ss.stage_pretrain(setup, 1, train, val)
+        check(engine.model.dtype == torch.bfloat16 and all(
+            p.dtype == torch.float32 for p in engine.model.parameters()),
+            "self_search pretrain: bf16 compute on fp32 parameters")
+        losses = rec[0]["stats"]["losses"]
+        check(all(math.isfinite(v) for v in losses),
+              f"self_search pretrain: losses {losses}")
+        after = dict(engine.model.named_parameters())
+        still = [k for k, v in rec[0]["convs"].items()
+                 if torch.equal(after[k], v)]
+        check(not still, f"self_search pretrain: {len(still)} conv weights "
+                         f"did not move, e.g. {still[:3]}")
+        check(all(torch.equal(a, t) for (_, a), (_, t) in
+                  zip(rec[0]["arch"], _arch_tensors(engine))),
+              "self_search pretrain: arch parameters moved")
+        row["pretrain"] = {"losses": losses, **rec[0]["readings"],
+                           "conv_weights_moved": len(rec[0]["convs"]),
+                           "val_mIoU": _val_mious(
+                               os.path.join(out, "pretrain"))}
+        del engine, after, rec
+        torch.cuda.empty_cache()
+        stage("pretrain")
+
+        # ---- search: the arch tensors move (the teacher's 1-wide ratio
+        # logits get no gradient)
+        with _recorded_epochs() as rec:
+            engine = ss.stage_search(setup, 1, train, val)
+        stats = rec[0]["stats"]
+        for k in ("loss", "loss_arch", "loss_latency"):
+            check(math.isfinite(stats[k]), f"self_search search: {k} "
+                                           f"{stats[k]}")
+        fixed = {f"arch0.ratio{i}" for i in range(3)}
+        wrong = [k for (k, a), (_, t) in zip(rec[0]["arch"],
+                                             _arch_tensors(engine))
+                 if torch.equal(a, t) != (k in fixed)]
+        check(not wrong, f"self_search search: arch tensors moved wrongly: "
+                         f"{wrong}")
+        mious = {**row["pretrain"]["val_mIoU"],
+                 **_val_mious(os.path.join(out, "search"))}
+        check(len(mious) == 25 and all(0.0 <= m <= 1.0
+                                       for m in mious.values()),
+              f"self_search: validate mIoUs {mious}")
+        # the band the search ran with, and that it needed no key the
+        # committed table lacks
+        with open(os.path.join(out, "search", "band.json")) as f:
+            band = json.load(f)["fps_band"]
+        want = ss.band(h100_lut())
+        check(list(want) == band and 0 < band[0] < band[1],
+              f"self_search: band {band}, the committed table's {want}")
+        row["search"] = {k: stats[k] for k in
+                         ("loss", "loss_arch", "loss_latency",
+                          "latency_supernet_ms")}
+        row["search"].update(rec[0]["readings"])
+        row["search"]["val_mIoU"] = _val_mious(os.path.join(out, "search"))
+        row["band"] = band
+        row["arch_fps"] = {str(i): list(engine.arch_fps(i)) for i in (0, 1)}
+        row["lut_keys_measured_on_card"] = sorted(
+            set(engine.lut.table) - set(h100_lut().table))
+        del engine, rec
+        torch.cuda.empty_cache()
+        stage("search")
+
+        # ---- train: the searched arms, then the control arms. The control
+        # arm could be the miou phase's shipped rows only if this config
+        # were the study's; it is not, so it trains here at the same length
+        train_setup = dataclasses.replace(setup,
+                                          niters=SELF_SEARCH_TRAIN_NITERS)
+        row["control_arm"] = {"fields_differing_from_the_study": sorted(
+            set(_config_fields_differ(ss.train_config("teacher", "shipped"),
+                                      ms.study_config("teacher")))
+            | set(_config_fields_differ(
+                ss.train_config("student", "shipped"),
+                ms.study_config("student"))))}
+        row["train"] = {}
+        for plan in ("searched", "shipped"):
+            for st in ("teacher", "student"):
+                ts = time.perf_counter()
+                rows = ss.stage_train(train_setup, st, plan, 1, train, val,
+                                      on_row=lambda r: None)
+                r = rows[-1]
+                check(math.isfinite(r["loss"]) and 0 <= r["val_mIoU"] <= 1,
+                      f"self_search train {st} {plan}: {r}")
+                row["train"][f"{st}_{plan}"] = {
+                    "loss": r["loss"], "val_mIoU": r["val_mIoU"],
+                    "seconds": time.perf_counter() - ts}
+        stage("train")
+
+        # ---- fps of the searched student through the kernels
+        fps = ss.stage_fps(setup)
+        check(fps["serving_path"] == "kernels"
+              and fps["launches"]["conv3x3_bn_relu_s1"] > 0
+              and fps["launches"]["conv3x3_bn_relu_s2"] > 0
+              and math.isfinite(fps["measured_ms"])
+              and fps["measured_ms"] > 0, f"self_search fps: {fps}")
+        row["fps"] = fps
+        stage("fps")
+
+        # ---- the report: every section (the plots where matplotlib is)
+        text = ss.report(setup)
+        sections = ["## Search trajectory (student)",
+                    "Epochs with the [2,1] student inside the",
+                    "## Searched student genotype",
+                    "Decoded cells per branch: ",
+                    "## Outcome vs shipped genotype",
+                    "| teacher val mIoU |", "| student FPS @1024x2048"]
+        try:
+            import matplotlib  # noqa: F401
+            sections.append("![ops](searched_ops1.png)")
+        except ImportError:
+            sections.append("(genotype plots not rendered: matplotlib")
+        missing = [t for t in sections if t not in text]
+        check(not missing, f"self_search report lacks {missing}")
+        row["report_lines"] = text.count("\n")
+        row["report_sections"] = len(sections)
+        stage("report")
+
+    # ---- the JAX chain's searched student, which the JAX package could
+    # serve only off its Pallas path: here through all three kernels
+    plan, lasts = ss.searched_student_plan(R4_ARCH)
+    check(lasts == [2, 0], f"self_search r4: lasts {lasts}")
+    row["r4_student"] = _decoded_student(plan, seed, eval_scenes[:2],
+                                         "self_search r4", bf16=True)
+    stage("r4_student")
+    torch.backends.cudnn.benchmark = benchmark
+    row["step_ms_bf16_vs_search_phase_fp32"] = {
+        part: {"bf16": row[part]["step_ms"]["last"],
+               "fp32": search_row and search_row[part]["step_ms"]["last"]}
+        for part in ("pretrain", "search")}
+    row["seconds"] = time.perf_counter() - t0
+    row["gpu"] = gpu_line()
+    emit(row)
+    return row
 
 
 def phase_agreement_seeds(seeds) -> None:
@@ -2860,6 +3153,9 @@ def main() -> int:
     ap.add_argument("--distributed-only", action="store_true",
                     help="only build, render the scenes and run the "
                          "distributed phase")
+    ap.add_argument("--self-search-only", action="store_true",
+                    help="only build, render the scenes and run the "
+                         "self_search phase")
     ap.add_argument("--detail-dir", default=None, metavar="DIR",
                     help="write the latency phase's long readings (every "
                          "conv shape, the swept table, the CLIs' output) "
@@ -2897,6 +3193,18 @@ def main() -> int:
         phase_distributed(args.seed, pool,
                           [scenes[i] for i in range(EVAL_IMAGES)])
         return 0
+    if args.self_search_only:
+        from fasterseg_tpu_torch.cli import miou_study as ms
+        from fasterseg_tpu_torch.data.procgen import ProcCity
+        phase_build()
+        t1 = time.perf_counter()
+        train, val = ms.render(ms.N_TRAIN, "train"), ms.render(ms.N_VAL,
+                                                              "val")
+        scenes = ProcCity(length=2, hw=HW, seed=args.seed, split="val")
+        emit({"phase": "render", "seconds": time.perf_counter() - t1})
+        phase_self_search(args.seed, train, val,
+                          [scenes[i] for i in range(2)])
+        return 0
     if args.study_only:
         phase_build()
         phase_study(args.seed, args.miou_epochs)
@@ -2928,6 +3236,8 @@ def main() -> int:
     latency = phase_latency(args.seed, student["graph_classmap_ms"],
                             args.detail_dir)
     study = phase_study(args.seed, args.miou_epochs)
+    self_search = phase_self_search(args.seed, *study.pop("scenes"),
+                                    eval_scenes, search)
 
     from fasterseg_tpu_torch.kernels import build as kbuild
     sources = {"conv3x3_bn_relu_s1": "conv3x3_bn_relu",
@@ -2956,6 +3266,10 @@ def main() -> int:
             "launches_bf16_trained":
                 study["bf16_trained"]["study"]["launches"][name],
             "launches_int8": study["int8"]["launches"]["int8"][name],
+            "launches_self_search_fps":
+                self_search["fps"]["launches"][name],
+            "launches_self_search_r4_student":
+                self_search["r4_student"]["launches"][name],
             "launches_distributed_eval_per_rank": [
                 r[name] for r in dist["gloo_eval"]["launches_per_rank"]],
             "launches_spatial_eval_per_rank": [

@@ -8,7 +8,8 @@ in the same three parts and order:
    stride in {1, 2}) of the 1024x2048 base resolution, under its true key;
 2. every key of the supernet latency tables and both stems;
 3. the derived walks of the shipped teacher and student genotypes at lasts
-   [2, 0] and [2, 1] (their aggregation ConvNorm, FFM and head keys).
+   [2, 0] and [2, 1] (their aggregation ConvNorm, FFM and head keys), with
+   `--num-classes` classes (19; the ProcCity chain's heads have 8).
 
 Each key is timed by `latency.measure.measured_provider`: the op built with
 seeded random weights, folded and packed once, run through the serving route
@@ -18,6 +19,8 @@ resumes where it stopped (keys already in the table are skipped), and
 `--max-entries` bounds a run.
 
   python -m fasterseg_tpu_torch.cli.latency_lut --out h100_lut.json
+  python -m fasterseg_tpu_torch.cli.latency_lut --num-classes 8 \
+      --out fasterseg_tpu_torch/latency/h100_lut.json   # adds the 8-class heads
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ def main(argv=None):
     p.add_argument("--Fch", type=int, default=12)
     p.add_argument("--layers", type=int, default=16)
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--num-classes", type=int, default=19,
+                   help="classes of the walks' heads (part 3)")
     p.add_argument("--max-entries", type=int, default=None,
                    help="stop after N new measurements (resumable)")
     p.add_argument("--arch", nargs="*", default=None,
@@ -117,7 +122,8 @@ def main(argv=None):
                                    ignore_skip=teacher)
             for lasts in ([2, 0], [2, 1]):
                 plan = build_plan(genos, lasts, Fch=args.Fch,
-                                  num_classes=19, stem_head_width=shw)
+                                  num_classes=args.num_classes,
+                                  stem_head_width=shw)
                 ms = derived_latency_ms(lut, plan, (H, W))
                 walks[f"arch_{idx}_{lasts[0]}{lasts[1]}"] = ms
                 print(f"arch {idx} lasts={lasts}: {ms:.4f} ms "

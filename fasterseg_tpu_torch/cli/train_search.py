@@ -19,7 +19,8 @@ default), the reference's relative band around the shipped student's
 estimate on the LUT in use (`auto`, latency/derived.py `fps_band`), or an
 explicit MIN,MAX. `--devices N` searches data-parallel on N ranks: NCCL on
 cuda:0..N-1 (more ranks than cards raise) or gloo with `--device cpu`; the
-global batch must divide by N. Not ported yet: `--bf16`.
+global batch must divide by N. `--bf16` runs the supernet in bf16 on fp32
+parameters (`SearchConfig.compute_dtype`).
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--layers", type=int, default=None)
     p.add_argument("--Fch", type=int, default=None)
+    p.add_argument("--bf16", action="store_true",
+                   help="supernet compute in bf16 (parameters, optimizer "
+                        "state and arch parameters stay fp32)")
     p.add_argument("--lut", default=None,
                    help="latency LUT json path (default: the reference's "
                         "table, latency/reference_lut.json)")
@@ -126,6 +130,8 @@ def _run(args, save_dir: str, mesh=None):
         overrides["layers"] = args.layers
     if args.Fch:
         overrides["Fch"] = args.Fch
+    if args.bf16:
+        overrides["compute_dtype"] = "bfloat16"
     if band != "ref":
         if band == "auto":
             lo, hi = fps_band(lut if lut is not None else reference_lut(),

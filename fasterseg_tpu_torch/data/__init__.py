@@ -7,6 +7,7 @@ from .datasets import (
     BDD,
     CamVid,
     FileListDataset,
+    InMemoryDataset,
     SyntheticDataset,
     DataSetting,
     CITYSCAPES_CLASSES,

@@ -13,8 +13,8 @@ and label roots. Replicated behaviours:
 * BGR -> RGB after cv2 load (BaseDataset.py:44)
 
 Reading PNGs needs cv2 (OpenCV). The module imports without it; a file-list
-dataset then raises when it is asked for an image. `SyntheticDataset` and
-`procgen.ProcCity` need no files.
+dataset then raises when it is asked for an image. `SyntheticDataset`,
+`InMemoryDataset` and `procgen.ProcCity` need no files.
 """
 
 from __future__ import annotations
@@ -100,6 +100,22 @@ def _require_cv2(path: str) -> None:
                           f"installed on this host")
 
 
+def select(items: Sequence, index_select: Optional[Sequence[int]] = None,
+           portion: Optional[float] = None) -> list:
+    """`items` reordered by `index_select`, then cut to the head (`portion`
+    >= 0) or tail (< 0) fraction (BaseDataset.py:83-93)."""
+    items = list(items)
+    if index_select is not None:
+        items = [items[i] for i in index_select]
+    if portion is not None:
+        n = len(items)
+        if portion >= 0:
+            items = items[:int(np.floor(n * portion))]
+        else:
+            items = items[int(np.floor(n * (1 + portion))):]
+    return items
+
+
 class FileListDataset:
     """Base file-list dataset producing dict samples
     {'data': HxWx3 uint8 RGB, 'label': HxW uint8, 'fn': str, 'n': int}."""
@@ -116,15 +132,8 @@ class FileListDataset:
         source = (setting.train_source if split in ("train", "trainval")
                   else setting.eval_source if split == "val"
                   else setting.test_source)
-        self.pairs = self._parse(resolve_source(source))
-        if index_select is not None:
-            self.pairs = [self.pairs[i] for i in index_select]
-        if portion is not None:
-            n = len(self.pairs)
-            if portion >= 0:
-                self.pairs = self.pairs[:int(np.floor(n * portion))]
-            else:
-                self.pairs = self.pairs[int(np.floor(n * (1 + portion))):]
+        self.pairs = select(self._parse(resolve_source(source)),
+                            index_select, portion)
         self.file_length = file_length
 
     @staticmethod
@@ -210,6 +219,39 @@ class CamVid(FileListDataset):
     class_names = CAMVID_CLASSES
     colors = CAMVID_COLORS
     ignore_label = 11
+
+
+class InMemoryDataset:
+    """Samples already in memory (dicts with 'data' and 'label', e.g.
+    rendered `procgen.ProcCity` scenes) in a file-list dataset's place: the
+    same `index_select` and `portion` selection and oversampling, so a
+    loader over it makes the batches it makes over the same samples written
+    as PNGs and read back. `InMemoryDataset.bind(samples)` is a
+    `dataset_cls` for `get_train_loader` and `search.run_search`."""
+
+    def __init__(self, samples: Sequence[Dict],
+                 portion: Optional[float] = None,
+                 index_select: Optional[Sequence[int]] = None,
+                 file_length: Optional[int] = None):
+        self.samples = select(samples, index_select, portion)
+        self.file_length = file_length
+
+    @classmethod
+    def bind(cls, samples: Sequence[Dict]):
+        """A callable with a file-list dataset class's signature that
+        serves `samples` whatever the setting and split."""
+        def dataset_cls(setting=None, split: str = "train",
+                        portion: Optional[float] = None,
+                        index_select: Optional[Sequence[int]] = None,
+                        file_length: Optional[int] = None):
+            return cls(samples, portion, index_select, file_length)
+        return dataset_cls
+
+    def __len__(self) -> int:
+        return self.file_length or len(self.samples)
+
+    def __getitem__(self, idx: int) -> Dict:
+        return self.samples[idx % len(self.samples)]
 
 
 class SyntheticDataset:

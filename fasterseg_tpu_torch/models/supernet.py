@@ -54,6 +54,15 @@ RatioSample = Tuple[torch.Tensor, torch.Tensor]
 HEAD_NAMES = ("head0", "head1", "head2", "head02", "head12")
 
 
+def beta_mix(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor
+             ) -> torch.Tensor:
+    """a * w[0] + b * w[1]: a two-input cell's beta mix, the fp32 beta row
+    rounded to the activations' dtype first, as the JAX package does
+    (supernet.py:297-301)."""
+    w = w.to(a.dtype)
+    return a * w[0] + b * w[1]
+
+
 class SlimMixedOp(nn.Module):
     """Alpha-weighted sum of the five slimmable primitives
     (model_search.py:46-78). Every primitive runs; each output is scaled by
@@ -72,7 +81,10 @@ class SlimMixedOp(nn.Module):
         gate = in_score * out_score
         acc = None
         for k, op in enumerate(self.ops):
-            y = op(x, in_idx, out_idx) * (alpha[k] * gate)
+            y = op(x, in_idx, out_idx)
+            # the fp32 mixing weight rounded to the activations' dtype before
+            # the product, as the JAX package does (supernet.py:69)
+            y = y * (alpha[k] * gate).to(y.dtype)
             acc = y if acc is None else acc + y
         return acc
 
@@ -132,15 +144,25 @@ class ArchParamSet:
 class Supernet(nn.Module):
     """The searchable grid and, for each arch, its stem, refines and five
     heads. NHWC input (N, H, W, 3); train mode returns the five heads'
-    1/8 logits, eval mode upsamples them x8 to the input's size."""
+    1/8 logits, eval mode upsamples them x8 to the input's size.
+
+    `dtype` is the compute dtype (the JAX package's `Supernet(dtype=)`;
+    None computes in the input's, float64 for a reference): the input is
+    cast to it at entry, each conv casts its fp32 weights to it,
+    BN takes its statistics in fp32 and returns it, and the alpha, gate and
+    beta mixing weights are rounded to it before their products. Parameters,
+    BN statistics and the arch parameters stay fp32; so do the logits'
+    losses (train/loss.py upcasts)."""
 
     def __init__(self, layers: int = 16, num_classes: int = 19, Fch: int = 12,
                  width_mult_list: Tuple[float, ...] = (1.0,),
                  stem_head_width: Tuple[Tuple[float, float], ...] = (
                      (1.0, 1.0),),
-                 remat: bool = False):
+                 remat: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layers, self.num_classes, self.Fch = layers, num_classes, Fch
+        self.dtype = dtype
         self.wml = tuple(width_mult_list)
         self.stem_head_width = tuple(tuple(s) for s in stem_head_width)
         self.remat = remat
@@ -201,6 +223,8 @@ class Supernet(nn.Module):
         al = [torch.softmax(a, -1) for a in alphas]
         be = [None, torch.softmax(betas[1], -1), torch.softmax(betas[2], -1)]
 
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         stem_out = self.stems[arch_idx](x)
         pad_c = self.nf(8) - stem_out.shape[-1]
         if pad_c:
@@ -218,12 +242,11 @@ class Supernet(nn.Module):
                     out.append(self._cell(i, j, out_prev[j - 1][1], alpha,
                                           ratio))
                 else:
-                    w = be[j][i - j - 1]
                     o0, d0 = self._cell(i, j, out_prev[j - 1][1], alpha, ratio)
                     o1, d1 = self._cell(i, j, out_prev[j][0], alpha, ratio)
-                    o = o0 * w[0] + o1 * w[1]
-                    d = None if d0 is None else d0 * w[0] + d1 * w[1]
-                    out.append((o, d))
+                    w = be[j][i - j - 1]
+                    d = None if d0 is None else beta_mix(d0, d1, w)
+                    out.append((beta_mix(o0, o1, w), d))
             out_prev = out
 
         # head-width static slices (grid -> fixed-width refines and heads)

@@ -8,7 +8,9 @@ ConvBnRelu), so a reference `Network_Multi_Path_Infer` state_dict loads as
 it is.
 
 Activations are NHWC, as in the JAX package; `Conv` hands torch's conv a
-permuted (channels-last) view and permutes the result back.
+permuted (channels-last) view and permutes the result back; on bf16
+activations it casts its fp32 parameters to bf16 on each call and adds the
+bias after the conv, as flax's `Conv(dtype=bf16, param_dtype=float32)`.
 """
 
 from __future__ import annotations
@@ -77,7 +79,17 @@ class Conv(nn.Conv2d):
                          dilation, groups, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.permute(0, 3, 1, 2))
+        x = x.permute(0, 3, 1, 2)
+        if x.dtype == self.weight.dtype:
+            y = super().forward(x)
+        else:
+            # flax's Conv(dtype=bf16, param_dtype=float32), as a bf16
+            # supernet runs it: the parameters cast to the input's dtype on
+            # each call, the bias added to the conv's rounded output (a
+            # second rounding, which torch's fused bias would not make)
+            y = self._conv_forward(x, self.weight.to(x.dtype), None)
+            if self.bias is not None:
+                y = y + self.bias.to(x.dtype)[:, None, None]
         return y.permute(0, 2, 3, 1)
 
 

@@ -33,8 +33,14 @@ global losses, both steps' gradients sum-reduced in one flat bucket (the
 weight step's clip after the reduction; the latency term, a function of the
 replicated arch parameters alone, added on rank 0 only, so its gradient
 counts once), the same host draws on every rank, validation sharded over the
-items with its counts reduced, and checkpoints written by rank 0. Not ported
-yet: genotype plots (`plot_genotypes`) raise.
+items with its counts reduced, and checkpoints written by rank 0.
+
+`SearchConfig.compute_dtype="bfloat16"` runs the supernet in bf16 as the JAX
+package does (`Supernet(dtype=)`): parameters, both optimizers' states, BN
+statistics and the arch parameters stay fp32, and so do the losses and the
+latency terms. `run_search(plot_genotypes=True)` renders each arch's decoded
+genotypes after every search epoch (utils/plotting.py, matplotlib) through
+the metric writer.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ from ..latency import (LatencyLUT, build_supernet_tables, derived_latency_ms,
 from ..models.infer import resolve_device
 from ..models.supernet import ArchParamSet, Supernet, init_supernet
 from ..parallel.mesh import replicate, sync_batchnorm_
-from ..train.loop import make_optimizer, set_learning_rate
+from ..train.loop import (clip_by_global_norm_, make_optimizer,
+                          set_learning_rate)
 from ..train.loss import ohem_cross_entropy
 from ..utils.checkpoint import load, partial_load, save, save_arch
 from .architect import (LatencyWeightController, latency_terms,
@@ -68,6 +75,9 @@ from .gumbel import draw_noise, sample_ratios
 logger = logging.getLogger("fasterseg_tpu_torch.search")
 
 VALID_NAMES = ("8s", "16s", "32s", "8s_32s", "16s_32s")
+# SearchConfig.compute_dtype -> the supernet's compute dtype (None: fp32, as
+# the input comes)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def forward_plan(n_arch: int, prun_modes: Sequence[str], num_widths: int,
@@ -84,18 +94,6 @@ def forward_plan(n_arch: int, prun_modes: Sequence[str], num_widths: int,
     elif pretrain:
         forwards.append((0, "max"))
     return forwards
-
-
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
-                         ) -> torch.Tensor:
-    """optax's `clip_by_global_norm` in place: g * c / max(|g|, c) with
-    |g| the norm over every tensor (torch's `clip_grad_norm_` scales by
-    c / (|g| + 1e-6) instead). Reads nothing to the host; returns |g|."""
-    total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        list(grads))))
-    scale = max_norm / torch.clamp(total, min=max_norm)
-    torch._foreach_mul_(list(grads), scale)
-    return total
 
 
 def _step_generator(seed: int, index: int) -> torch.Generator:
@@ -126,10 +124,6 @@ class SearchEngine:
 
     def __init__(self, config: SearchConfig, lut: Optional[LatencyLUT] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {config.compute_dtype!r}: the port's "
-                "supernet computes in float32")
         self.config = c = config
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.device)
@@ -143,7 +137,8 @@ class SearchEngine:
         self.model = init_supernet(Supernet(
             layers=c.layers, num_classes=c.num_classes, Fch=c.Fch,
             width_mult_list=self.wml, stem_head_width=c.stem_head_width,
-            remat=c.supernet_remat), c.seed).to(self.device)
+            remat=c.supernet_remat, dtype=COMPUTE_DTYPES[c.compute_dtype]),
+            c.seed).to(self.device)
         replicate(sync_batchnorm_(self.model, mesh), mesh)
         self.arch_params: Dict[int, ArchParamSet] = {
             i: ArchParamSet.create(c.layers, num_widths=nwi,
@@ -474,11 +469,11 @@ def run_search(config: SearchConfig, val_dataset=None, epochs=None,
     """The full driver (train_search.py:36-212): pretrain when
     config.pretrain is true, else bi-level search with latency control.
     Scalars go to save_dir/metrics.jsonl (and TensorBoard where it
-    imports). `mesh`: this rank of a data-parallel search (its loaders make
-    only its shard of each batch; rank 0 writes the scalars)."""
-    if plot_genotypes:
-        raise NotImplementedError(
-            "genotype plots are not ported yet (ROADMAP Queue 1 item 7)")
+    imports). With `plot_genotypes`, each search epoch's decoded genotypes
+    go to the writer as figures (needs matplotlib), as the reference's
+    arch_logging renders them (train_search.py:274-303). `mesh`: this rank
+    of a data-parallel search (its loaders make only its shard of each
+    batch; rank 0 writes the scalars and figures)."""
     pretrain = bool(config.pretrain)
     update_arch = not pretrain
     engine = SearchEngine(config, lut=lut, device=device, mesh=mesh)
@@ -528,7 +523,8 @@ def run_search(config: SearchConfig, val_dataset=None, epochs=None,
             metrics = (_pretrain_eval(engine, val_dataset, epoch,
                                       max_eval_items, writer) if pretrain
                        else _search_eval(engine, val_dataset, epoch,
-                                         max_eval_items, writer))
+                                         max_eval_items, writer,
+                                         plot_genotypes))
             if save_dir and ((epoch + 1) % save_every == 0
                              or epoch == epochs - 1):
                 engine.save(save_dir, epoch, metrics)
@@ -555,9 +551,10 @@ def _pretrain_eval(engine: SearchEngine, val_dataset, epoch: int,
 
 
 def _search_eval(engine: SearchEngine, val_dataset, epoch: int, max_items,
-                 writer) -> Dict:
-    """Each arch's five mIoUs and decoded FPS, and the controller's update
-    of its latency weight; returns the per-arch metrics `save` stamps."""
+                 writer, plot_genotypes: bool = False) -> Dict:
+    """Each arch's five mIoUs and decoded FPS, the controller's update of
+    its latency weight and, with `plot_genotypes`, its genotype figures;
+    returns the per-arch metrics `save` stamps."""
     metrics = {}
     for idx in range(len(engine.arch_params)):
         name = "teacher" if idx == 0 else "student"
@@ -582,4 +579,25 @@ def _search_eval(engine: SearchEngine, val_dataset, epoch: int, max_items,
             writer.add_scalar(f"objective/val_{name}_16s_32s",
                               objective_acc_lat(mious[4], 1000.0 / fps1),
                               epoch)
+            if plot_genotypes:
+                _plot_genotypes(engine, idx, name, epoch, writer)
     return metrics
+
+
+def _plot_genotypes(engine: SearchEngine, idx: int, name: str, epoch: int,
+                    writer) -> None:
+    """The arch's decoded cells per branch (`arch/ops{last}_{name}`) and
+    its three branches' paths and widths (`arch/path_width_{name}`), under
+    the JAX package's tags (loop.py:569-585)."""
+    import matplotlib.pyplot as plt
+    from ..utils.plotting import plot_op, plot_path_width
+    genos = decode_network(engine.numpy_arch(idx), engine.wml,
+                           engine.config.layers)
+    figures = {f"arch/ops{last}_{name}": plot_op(g.ops, g.path, g.widths)
+               for last, g in genos.items()}
+    figures[f"arch/path_width_{name}"] = plot_path_width(
+        [2, 1, 0], [genos[b].path for b in (2, 1, 0)],
+        [genos[b].widths for b in (2, 1, 0)])
+    for tag, fig in figures.items():
+        writer.add_figure(tag, fig, epoch)
+        plt.close(fig)

@@ -16,8 +16,11 @@ first momentum buffer is the gradient itself, as optax's trace from zeros is.
 The learning rate is not stepped per epoch (`ExponentialLR.step()` drifts
 when a run resumes mid-epoch); it is set on the param groups before every
 update from the count k of earlier updates, lr * decay^(k // steps_per_epoch),
-optax's `exponential_decay(staircase=True)`. Training applies no gradient
-clip, as the JAX package's does not.
+optax's `exponential_decay(staircase=True)`. `grad_clip` (off by default, as
+in the JAX package, whose training session never sets it) scales the raw
+gradients by optax's global-norm clip before the update, so the weight
+decay that `SGD.step` adds comes after it: optax's
+`chain(add_decayed_weights, sgd)` order behind `clip_by_global_norm`.
 
 Data parallelism (`mesh`): each rank runs the step on its shard with the
 global-batch losses and sync BN, and the gradients are sum-reduced in one
@@ -29,7 +32,7 @@ is not the gradient of the global-count losses).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -73,16 +76,31 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, step: int) -> None:
         group["lr"] = learning_rate(group, step)
 
 
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
+                         ) -> torch.Tensor:
+    """optax's `clip_by_global_norm` in place: g * c / max(|g|, c) with
+    |g| the norm over every tensor (torch's `clip_grad_norm_` scales by
+    c / (|g| + 1e-6) instead). Reads nothing to the host; returns |g|."""
+    total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        list(grads))))
+    scale = max_norm / torch.clamp(total, min=max_norm)
+    torch._foreach_mul_(list(grads), scale)
+    return total
+
+
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                teacher: Optional[torch.nn.Module] = None, *,
                min_kept: int = 131072, ignore_label: int = 255,
                thresh: float = 0.7, aux_weight: float = 0.2,
-               num_classes: int = 19, mesh=None) -> Dict[str, torch.Tensor]:
+               num_classes: int = 19, mesh=None,
+               grad_clip: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """One update of `state` in place on a batch: images (N, H, W, 3) fp32,
     labels (N, H, W) integer, on the model's device. `teacher` (frozen, in
     eval mode, no gradient) adds the KL distillation term. With `mesh` (a
     `parallel.Mesh`) the batch is this rank's shard of the global batch,
-    and the update is the one-rank update on the global batch.
+    and the update is the one-rank update on the global batch. `grad_clip`
+    clips the gradients' global norm (of the global batch's gradients) to
+    it before the update.
 
     Returns {loss, loss_kl, inter, union} as tensors on the device (no host
     read): the loss before the update, and the per-class intersection and
@@ -106,9 +124,12 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         loss_kl = kl_distillation(p8, t8, mesh=mesh)
         loss = loss + loss_kl
     loss.backward()
+    grads = [p.grad for g in opt.param_groups for p in g["params"]
+             if p.grad is not None]
     if mesh is not None:
-        mesh.reduce_grads_([p.grad for g in opt.param_groups
-                            for p in g["params"] if p.grad is not None])
+        mesh.reduce_grads_(grads)
+    if grad_clip is not None:
+        clip_by_global_norm_(grads, grad_clip)
     set_learning_rate(opt, state.step)
     opt.step()
     state.step += 1

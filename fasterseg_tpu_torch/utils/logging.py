@@ -3,7 +3,8 @@
 Counterpart of the JAX package's utils/logging.py (the reference's
 tools/engine/logger.py and its tensorboardX SummaryWriter): a coloured
 console logger with a FASTERSEG_LOGGING_LEVEL override and an optional file
-sink, a metric writer, and timestamped run directories.
+sink, a metric writer (scalars, figures, images), and timestamped run
+directories.
 """
 
 from __future__ import annotations
@@ -52,10 +53,11 @@ def get_logger(name: str = "fasterseg_tpu_torch",
 
 
 class MetricWriter:
-    """`add_scalar` as SummaryWriter's: every scalar goes to
-    `log_dir/metrics.jsonl` (one JSON object a line: tag, value, step,
-    time), and to TensorBoard too where `torch.utils.tensorboard`
-    imports."""
+    """`add_scalar`, `add_figure` and `add_image` as SummaryWriter's. Every
+    scalar goes to `log_dir/metrics.jsonl` (one JSON object a line: tag,
+    value, step, time), every figure to a PNG in `log_dir`; both go to
+    TensorBoard too where `torch.utils.tensorboard` imports, and images go
+    only there."""
 
     def __init__(self, log_dir: str, tensorboard: bool = True):
         os.makedirs(log_dir, exist_ok=True)
@@ -77,6 +79,20 @@ class MetricWriter:
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), step)
+
+    def add_figure(self, tag: str, figure, step: int) -> None:
+        """A matplotlib figure as `log_dir/<tag, / as _>_<step>.png`."""
+        path = os.path.join(self.log_dir,
+                            f"{tag.replace('/', '_')}_{step}.png")
+        figure.savefig(path, bbox_inches="tight")
+        if self._tb is not None:
+            self._tb.add_figure(tag, figure, step)
+
+    def add_image(self, tag: str, image_hwc, step: int) -> None:
+        """An HWC image array, to TensorBoard only (as CHW)."""
+        if self._tb is not None:
+            import numpy as np
+            self._tb.add_image(tag, np.transpose(image_hwc, (2, 0, 1)), step)
 
     def close(self) -> None:
         self._jsonl.close()

@@ -27,7 +27,8 @@ def rank_job(mesh, jax_train_payload) -> dict:
     return {"bn": bn_case(mesh), "losses": loss_case(mesh),
             "loader": loader_case(mesh), "steps": dryrun.run_steps(mesh),
             "eval": eval_case(mesh), "shared_eval": shared_eval_case(mesh),
-            "jax_train": train_from_payload(mesh, jax_train_payload)}
+            "jax_train": train_from_payload(mesh, jax_train_payload),
+            "clip": clip_case(mesh)}
 
 
 # ---- (a) sync BN ----
@@ -249,3 +250,45 @@ def train_from_payload(mesh, payload) -> dict:
     m = train_step(state, x, y, teacher, mesh=mesh, **payload["step"])
     return {"state": {k: v.clone() for k, v in student.state_dict().items()},
             "metrics": {k: v.clone() for k, v in m.items()}}
+
+
+# ---- the train step's gradient clip ----
+
+CLIP = 0.05                          # below the step's gradient norm
+CLIP_BATCH = 4                       # the global batch
+
+
+def clip_case(mesh) -> dict:
+    """One float64 distill `train_step` with `grad_clip=CLIP` of the dry
+    run's tiny student and frozen teacher (the JAX package's draws for
+    seeds 0 and 1) on this rank's shard of a global batch of 4 at 64x128;
+    returns the state, the metrics and the global norm the clip read."""
+    import fasterseg_tpu_torch.train.loop as loop
+    from fasterseg_tpu_torch.models import DerivedNet
+    from fasterseg_tpu_torch.parallel import replicate
+    from fasterseg_tpu_torch.train import TrainState, make_optimizer
+    from fasterseg_tpu_torch.utils.weights import init_jax_draw_
+    student, teacher = (init_jax_draw_(DerivedNet(plan), seed).double()
+                        for seed, plan in enumerate(dryrun.distill_plans()))
+    teacher.eval().requires_grad_(False)
+    replicate(student, mesh)
+    state = TrainState(student, make_optimizer(student.parameters(),
+                                               steps_per_epoch=10))
+    x, y = dryrun.global_batch(5, CLIP_BATCH, dryrun.DISTILL_HW,
+                               dryrun.DISTILL_HW)
+    x, y = shard_batch((x, y), mesh)
+    norms, real = [], loop.clip_by_global_norm_
+
+    def spy(grads, max_norm):
+        total = real(grads, max_norm)
+        norms.append(float(total))
+        return total
+    loop.clip_by_global_norm_ = spy
+    try:
+        m = loop.train_step(state, x, y, teacher, min_kept=CLIP_BATCH * 64
+                            * 128 // 16, mesh=mesh, grad_clip=CLIP)
+    finally:
+        loop.clip_by_global_norm_ = real
+    return {"state": {k: v.clone() for k, v in student.state_dict().items()},
+            "metrics": {k: v.clone() for k, v in m.items()},
+            "norm": norms[0]}

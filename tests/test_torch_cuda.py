@@ -650,3 +650,198 @@ def test_cost_model_calibrate_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(measure, "graph_slope_ms", broken)
     with pytest.raises(RuntimeError, match="measurement failed"):
         H100CostModel.calibrate()
+
+
+# ---------------------------------------------------------------- self-search
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _tiny_bf16_supernet():
+    """The tiny supernet (5 layers, Fch 8, five widths, stem and head
+    width 8/12) computing in bf16 on fp32 weights, its BN rows and
+    statistics and its heads' 1x1 biases random; arch parameters and width
+    draws from one seed."""
+    from fasterseg_tpu_torch.models.supernet import (ArchParamSet, Supernet,
+                                                     init_supernet)
+    from fasterseg_tpu_torch.search import sample_ratios
+    from _torch_search_common import randomize_bn_
+    wml = (4.0 / 12, 6.0 / 12, 8.0 / 12, 10.0 / 12, 1.0)
+    net = randomize_bn_(init_supernet(Supernet(
+        layers=5, Fch=8, width_mult_list=wml,
+        stem_head_width=((8.0 / 12, 8.0 / 12),), dtype=torch.bfloat16), 0), 1)
+    ap = ArchParamSet.create(5, num_widths=len(wml))
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for t in ap.tensors():
+            t.copy_(torch.randn(t.shape, generator=g))
+        for head in net.heads[0].values():
+            head.conv_1x1.bias.copy_(torch.randn(head.conv_1x1.bias.shape,
+                                                 generator=g))
+    x = torch.randn((2, 64, 128, 3), generator=g)
+    ratios = sample_ratios(ap.ratios, "random", len(wml), noise=[
+        torch.randint(0, len(wml), (r.shape[0],), generator=g)
+        for r in ap.ratios])
+    return net, ap, x, ratios
+
+
+def _share_equal(a, b) -> float:
+    """The share of elements of two bf16 tensors that are bit-equal."""
+    assert a.dtype == b.dtype == torch.bfloat16
+    return float((a.cpu() == b.cpu()).double().mean())
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_supernet_forward_on_card_matches_cpu(cuda_device, train):
+    """A forward of the tiny supernet computing in bf16 on fp32 weights,
+    on the card and on the CPU from the same weights, input and widths,
+    against the CPU's bf16 and fp32 forwards. Train mode (BN on batch
+    statistics): each head's logits within twice the CPU's bf16-vs-fp32
+    spread (relative L2). Eval mode, where the rounding is deterministic
+    (tests/test_torch_search_bf16.py holds the CPU to the JAX package's
+    bf16 there at these bars): the card's logits bit-equal to the CPU's
+    bf16 logits on at least 0.65 of elements, which the CPU's fp32 logits
+    rounded to bf16 miss, and within 3/4 of the spread; so a card forward
+    that computed in fp32 fails."""
+    import copy
+    from fasterseg_tpu_torch.models.supernet import ArchParamSet
+    net, ap, x, ratios = _tiny_bf16_supernet()
+    outs = {}
+    for name, device, dtype in (("cpu32", "cpu", None),
+                                ("cpu16", "cpu", torch.bfloat16),
+                                ("card16", cuda_device, torch.bfloat16)):
+        m = copy.deepcopy(net).to(device).train(train)
+        m.dtype = dtype
+        a = ArchParamSet(*([None if t is None else t.detach().to(device)
+                            for t in ts] for ts in (ap.alphas, ap.betas,
+                                                    ap.ratios)))
+        r = [tuple(v.to(device) for v in s) for s in ratios]
+        with torch.no_grad():
+            outs[name] = [p.cpu() for p in m(x.to(device), 0, a.alphas,
+                                             a.betas, r)]
+    readings = []
+    for k in range(5):
+        cpu32, cpu16, card16 = (outs[n][k] for n in ("cpu32", "cpu16",
+                                                     "card16"))
+        spread = _rel(cpu16, cpu32)
+        assert 0 < spread < 0.1 and card16.dtype == torch.bfloat16
+        rel = _rel(card16, cpu16)
+        shares = (_share_equal(card16, cpu16),
+                  _share_equal(cpu32.to(torch.bfloat16), cpu16))
+        readings.append((rel / spread, *shares))
+        if train:
+            assert rel <= 2 * spread, (k, rel, spread)
+        else:
+            assert rel <= 0.75 * spread, (k, rel, spread)
+            assert shares[0] >= 0.65 > shares[1], (k, shares)
+    print(f"train={train}: (card16-vs-cpu16 over the spread, bit-equal "
+          f"share, fp32's share) per head: {readings}")
+
+
+@pytest.mark.parametrize("case", ["stem", "cell", "head", "scale_by_8",
+                                  "beta_mix"])
+def test_bf16_op_on_card_rounds_as_on_cpu(cuda_device, case):
+    """Each op of the bf16 supernet (eval-mode BN) on one bf16 input, on the
+    card and on the CPU: the card's output bit-equal to the CPU's on at
+    least 0.99 of elements (0.95 for the stem's five stacked convs), a bar
+    that the same op computed in fp32 and rounded once misses on the CPU.
+    The CPU's rounding points are held to the JAX package's in
+    tests/test_torch_search_bf16.py."""
+    import copy
+    from fasterseg_tpu_torch.models import supernet
+    from fasterseg_tpu_torch.ops.resize import scale_by
+    net = _tiny_bf16_supernet()[0].eval()
+    g = torch.Generator().manual_seed(7)
+    rand = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16)
+    if case == "stem":
+        fn, args = (lambda m, x: m.stems[0](x)), (rand(2, 64, 128, 3),)
+    elif case == "head":
+        fn = lambda m, x: m.heads[0]["head0"](x)
+        args = (rand(2, 16, 32, net.heads[0]["head0"].conv_3x3.conv
+                     .in_channels),)
+    elif case == "cell":
+        cell = net.cells["1_1"]
+        alpha = torch.softmax(torch.randn(5, generator=g), -1)
+        r = [(torch.tensor(i), torch.tensor(v)) for i, v in
+             ((2, 0.8125), (3, 0.6), (4, 0.9))]
+        fn = lambda m, x, a, *r: torch.cat([t.flatten() for t in m.cells[
+            "1_1"](x, a, *r)])
+        args = (rand(2, 16, 32, next(cell.parameters()).shape[1]), alpha, *r)
+    elif case == "scale_by_8":
+        fn, args = (lambda m, x: scale_by(x, 8)), (rand(2, 16, 32, 19),)
+    else:
+        fn = lambda m, a, b, w: supernet.beta_mix(a, b, w)
+        args = (rand(2, 8, 16, 16), rand(2, 8, 16, 16),
+                torch.softmax(torch.randn(2, generator=g), -1))
+    to = lambda v, dev, f32=False: (tuple(to(t, dev, f32) for t in v)
+                                    if isinstance(v, tuple) else v.to(
+                                        dev, torch.float32) if f32
+                                    and v.dtype == torch.bfloat16
+                                    else v.to(dev))
+    with torch.no_grad():
+        cpu = fn(net, *args)
+        card = fn(copy.deepcopy(net).to(cuda_device),
+                  *(to(a, cuda_device) for a in args)).cpu()
+        fp32 = fn(net, *(to(a, "cpu", True) for a in args)).to(
+            torch.bfloat16)
+    share, fault = _share_equal(card, cpu), _share_equal(fp32, cpu)
+    bar = 0.95 if case == "stem" else 0.99
+    print(f"{case}: card-vs-cpu bit-equal {share:.5f}, fp32 {fault:.5f}")
+    assert share >= bar > fault, (case, share, fault)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_round4_student_conv_shapes_through_the_kernels(cuda_device, gen,
+                                                        dtype):
+    """Every 3x3 conv shape of the JAX chain's searched student
+    (evidence/self_search_r4, 8 classes, stem and head width 8/12) at
+    1024x2048, read off its runner's forward on the card, through the
+    kernel against its plain version: fp32 1e-4 (stride 1) / 2e-4 (stride
+    2), bf16 2e-2."""
+    import fasterseg_tpu_torch.models.fast_body as fast_body
+    from fasterseg_tpu_torch.cli.self_search import searched_student_plan
+    from fasterseg_tpu_torch.models import DerivedNet, InferenceRunner
+    from fasterseg_tpu_torch.utils import init_random_
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    plan, lasts = searched_student_plan(os.path.join(
+        repo, "evidence", "self_search_r4", "search", "arch_1.npz"))
+    assert lasts == [2, 0] and plan.num_classes == 8
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), 0),
+                             dtype=dtype, device=cuda_device)
+    shapes, real = set(), fast_body.conv3x3_bn_relu
+
+    def spy(x, w, scale, bias, stride=1, relu=True, x2=None):
+        y = real(x, w, scale, bias, stride=stride, relu=relu, x2=x2)
+        shapes.add((x.shape[1], x.shape[2], x.shape[3],
+                    0 if x2 is None else x2.shape[3], y.shape[3], stride,
+                    relu))
+        return y
+
+    fast_body.conv3x3_bn_relu = spy
+    try:
+        runner.classmap(torch.zeros((1, 1024, 2048, 3), device=cuda_device))
+    finally:
+        fast_body.conv3x3_bn_relu = real
+    assert len(shapes) >= 8
+    for H, W, c1, c2, co, stride, relu in sorted(shapes):
+        x, w, s, b = _conv_args(gen, H, W, c1 + c2, co, cuda_device)
+        want = conv3x3_bn_relu_plain(x.to(dtype).float(), w, s, b,
+                                     stride=stride, relu=relu)
+        xs = x.to(dtype)
+        if c2:
+            a, c = xs[..., :c1].contiguous(), xs[..., c1:].contiguous()
+            wk = split_weights(w, (c1, c2)) if dtype == torch.bfloat16 else w
+            got = conv3x3_bn_relu(a, wk, s, b, stride=stride, relu=relu,
+                                  x2=c)
+        else:
+            got = conv3x3_bn_relu(xs, w, s, b, stride=stride, relu=relu)
+        assert got.dtype == dtype
+        tol = (2e-2 if dtype == torch.bfloat16
+               else 1e-4 if stride == 1 else 2e-4)
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                   msg=f"{(H, W, c1, c2, co, stride)}")

@@ -10,6 +10,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 import fasterseg_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -252,3 +254,36 @@ def test_parallel_modules_and_rank_helper_import_without_jax():
                          capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok", "1"]
+
+
+_SELF_SEARCH_MODULES = ["fasterseg_tpu_torch.utils.plotting",
+                        "fasterseg_tpu_torch.utils.logging",
+                        "fasterseg_tpu_torch.cli.self_search",
+                        "fasterseg_tpu_torch.data.datasets"]
+
+
+def test_self_search_modules_import_without_jax_and_matplotlib(monkeypatch):
+    """The self-search chain's modules on their own with JAX, the JAX
+    package, cv2 and matplotlib banned (the GPU host has neither of the
+    last two: the plots import matplotlib inside their calls), and the CLI
+    defaults to the card."""
+    import argparse
+    assert set(_SELF_SEARCH_MODULES) <= set(_modules())
+    env = dict(os.environ, ALSO_BANNED="cv2 matplotlib")
+    out = subprocess.run([sys.executable, "-c", _PROBE,
+                          *_SELF_SEARCH_MODULES], cwd=REPO,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok", str(len(_SELF_SEARCH_MODULES))]
+    from fasterseg_tpu_torch.cli import self_search
+    defaults = []
+
+    def parse(self, *args, **kwargs):
+        defaults.append(self._subparsers._group_actions[0].choices[
+            "chain"].get_default("device"))
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
+    with pytest.raises(_Parsed):
+        self_search.main([])
+    assert defaults == ["cuda"]

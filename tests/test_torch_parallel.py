@@ -165,6 +165,24 @@ def test_dryrun_steps_match_one_rank(ranks, step):
     assert ranks[0]["steps"][step]["loss"] == ranks[1]["steps"][step]["loss"]
 
 
+def test_train_step_grad_clip_matches_one_rank(ranks):
+    """`train_step(grad_clip=...)` on two ranks clips the global batch's
+    reduced gradients: the float64 step equals one rank's on the whole
+    batch (atol 1e-10 + rtol 1e-8), with the same norm, which the clip
+    binds."""
+    want = W.clip_case(None)
+    assert want["norm"] > W.CLIP
+    for r in ranks:
+        got = r["clip"]
+        assert got["norm"] == pytest.approx(want["norm"], rel=1e-12)
+        for part in ("state", "metrics"):
+            for k, w in want[part].items():
+                torch.testing.assert_close(got[part][k], w, atol=1e-10,
+                                           rtol=1e-8, msg=k)
+    for k, v in ranks[0]["clip"]["state"].items():
+        assert torch.equal(v, ranks[1]["clip"]["state"][k]), k
+
+
 @pytest.mark.parametrize("name", ["single", "single_batch2", "multi_flip"])
 def test_evaluator_matches_one_process(ranks, name):
     """Batch 2 over 5 scenes: the ranks' last global batch (4, pad) is

@@ -13,9 +13,11 @@ as the oracle where it can be one.
   controller, epoch); `load_weights` carries the weights.
 * `slow`: one weight step (pretrain and search) and one arch step against
   the JAX package's SearchEngine from the same state on JAX's draws.
+
+bf16 compute, genotype plots and `--bf16` are held in
+tests/test_torch_search_bf16.py and tests/test_torch_plotting.py.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -175,20 +177,6 @@ def test_resume_is_bit_exact(val_dataset, tmp_path):
     assert not res.missing and not res.mismatched
     for k, v in resumed_engine.model.state_dict().items():
         assert torch.equal(fresh.model.state_dict()[k], v), k
-
-
-def test_left_out_options_raise():
-    """Genotype plots, bf16 search and `--bf16` are not ported (data
-    parallelism is: tests/test_torch_parallel.py)."""
-    cfg, _ = tiny_configs(pretrain=True)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        SearchEngine(dataclasses.replace(cfg, compute_dtype="bfloat16"),
-                     lut=port_lut(), device="cpu")
-    with pytest.raises(NotImplementedError, match="genotype plots"):
-        run_search(cfg, plot_genotypes=True, device="cpu")
-    from fasterseg_tpu_torch.cli.train_search import main
-    with pytest.raises(SystemExit):
-        main(["--synthetic", "--bf16", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------- slow tier

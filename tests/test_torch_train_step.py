@@ -27,7 +27,11 @@ margin of p8 under twice its bar, each of which may move two classes'
 counts by one); every parameter and BN running statistic after an update
 within 10 % of that update's largest step in the tensor, plus 1e-6 (read:
 at most 3.8 % on the first update and 5.3 % on the second). The optimizer alone is held to optax
-exactly (rtol 1e-6) in `test_optimizer_matches_optax`.
+exactly (rtol 1e-6) in `test_optimizer_matches_optax`. The teacher-mode
+step with `grad_clip` set to a quarter of the first update's unclipped norm
+(optax's global-norm clip, which binds on both updates) is held to the same
+bars (one more JAX compile), and a clip that does not bind leaves the
+update bit for bit as it is.
 """
 
 import copy
@@ -147,7 +151,7 @@ def _check_metrics(tm, jm, p8, y, rel):
     assert np.abs(union - jm["union"]).sum() <= 2 * ties
 
 
-def _run_both(seed, teacher=None, thresh=0.7):
+def _run_both(seed, teacher=None, thresh=0.7, grad_clip=None):
     """Two updates in each package, the second from the JAX state after
     the first; checks each; returns the port's state."""
     jplan, tplan = jax_student_plan(), student_plan()
@@ -155,7 +159,7 @@ def _run_both(seed, teacher=None, thresh=0.7):
     tx = jax_make_optimizer(**OPT)
     jstate = create_train_state(variables, tx)
     kw = dict(min_kept=MIN_KEPT, thresh=thresh, aux_weight=0.2,
-              num_classes=19)
+              num_classes=19, grad_clip=grad_clip)
     tnet, extra = None, ()
     if teacher is not None:
         tmodel, tvars, tnet = teacher
@@ -224,6 +228,57 @@ def test_student_mode_step_matches_jax():
     _run_both(0, teacher=(tmodel, tvars, tnet), thresh=0.1)
     for k, v in tnet.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def _spy_clip(monkeypatch):
+    """The global norms `train_step`'s clip reads, in order."""
+    import fasterseg_tpu_torch.train.loop as loop
+    norms, real = [], loop.clip_by_global_norm_
+
+    def spy(grads, max_norm):
+        total = real(grads, max_norm)
+        norms.append(float(total))
+        return total
+    monkeypatch.setattr(loop, "clip_by_global_norm_", spy)
+    return norms
+
+
+def test_teacher_mode_step_with_grad_clip_matches_jax(monkeypatch):
+    """`train_step(grad_clip=c)` against `make_train_step(grad_clip=c)`
+    (optax's global-norm clip before the decayed-weight SGD), at a c a
+    quarter of the first update's unclipped norm, so the clip binds on
+    both updates; the bars of the unclipped step."""
+    norms = _spy_clip(monkeypatch)
+    jplan, tplan = jax_student_plan(), student_plan()
+    _, _, net = _nets(jplan, tplan, 0)
+    x, y = _batches(1)[0]
+    state = TrainState(net, make_optimizer(net.parameters(), **OPT))
+    train_step(state, torch.from_numpy(x), torch.from_numpy(y),
+               min_kept=MIN_KEPT, grad_clip=float("inf"))
+    clip = norms.pop() / 4
+    _run_both(0, grad_clip=clip)
+    assert len(norms) == 2 and min(norms) > clip, (norms, clip)
+
+
+def test_grad_clip_that_does_not_bind_changes_nothing(monkeypatch):
+    """A clip above the gradients' norm leaves the update bit for bit as
+    it is without one."""
+    norms = _spy_clip(monkeypatch)
+    jplan, tplan = jax_student_plan(), student_plan()
+    _, _, net = _nets(jplan, tplan, 0)
+    x, y = (torch.from_numpy(a) for a in _batches(1)[0])
+    out = []
+    for clip in (None, 1e9):
+        n = copy.deepcopy(net)
+        state = TrainState(n, make_optimizer(n.parameters(), **OPT))
+        m = train_step(state, x, y, min_kept=MIN_KEPT, grad_clip=clip)
+        out.append((n.state_dict(), m))
+    assert len(norms) == 1 and norms[0] < 1e9
+    (a, ma), (b, mb) = out
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
 
 
 def test_optimizer_matches_optax():
