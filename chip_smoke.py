@@ -35,17 +35,21 @@ Run from the root of a checkout. Phases, one JSON line each:
   kernels        each kernel against its plain PyTorch version on the card
                  at the shapes the serving path gives it (fp32 and bf16),
                  with its time (CUDA events over a CUDA graph of 20
-                 launches), its bound and a PyTorch library yardstick; the
-                 conv's halo mode (a block of an image split over H with its
-                 neighbours' rows) on each of its three routes against the
-                 plain version with the same halos, timed beside the launch
-                 without a halo on the same block
+                 launches), its bound and a PyTorch library yardstick, in
+                 bf16 and, for the conv, in fp32 too (the route it ran,
+                 cuDNN fp32 with TF32 off as the same function and with
+                 TF32 on beside it, the bound by the route's engine and
+                 by fp32 CUDA cores beside it); the conv's halo mode (a block of an image
+                 split over H with its neighbours' rows) on each of its four
+                 routes against the plain version with the same halos, timed
+                 beside the launch without a halo on the same block
   reference      the kernel path in fp32 against the reference network's
                  output on the parity assets (tests/assets/parity_*.npz)
   serve_student  the student's .logits and .classmap in bf16 at 1024x2048
                  with seeded random weights: finite outputs, every kernel
                  counter rose, class-map agreement with the plain fp32 path,
-                 ms/frame, launch by launch and replayed as a CUDA graph
+                 ms/frame, launch by launch and replayed as a CUDA graph;
+                 the fp32 runner's .logits replayed as a CUDA graph
   serve_teacher  one teacher .classmap with the same agreement checks
   eval_student   fasterseg_tpu_torch.eval.Evaluator over four 1024x2048
                  ProcCity scenes (data/procgen.py, seeded) with the student's
@@ -57,7 +61,9 @@ Run from the root of a checkout. Phases, one JSON line each:
                  the shapes of the multi-scale (0.75, 1.25) and sliding
                  (1024 crop) inputs, and K32 against P32 there (1/8 logits,
                  class maps of multi-scale + flip and of sliding); mIoU,
-                 ms per image
+                 ms per image; the K32 run's conv launches by route (every
+                 fp32 conv on the stem kernel or the 3xTF32 route) and one
+                 K32 image's device busy time against its wall clock
   train_teacher  fasterseg_tpu_torch.train.TrainSession in teacher mode at
                  the repo's TrainConfig (batch 12, 512x1024 crops of 12
                  ProcCity scenes through TrainPre and TrainLoader): two steps
@@ -203,7 +209,8 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # peak operation rates (H100 SXM data sheet, dense): bf16 products on the
 # tensor cores; fp32 arithmetic on the CUDA cores
-PEAK_OPS_PER_S = {"tensor_bf16": 989e12, "cuda_fp32": 67e12}
+PEAK_OPS_PER_S = {"tensor_bf16": 989e12, "tensor_tf32": 495e12,
+                  "cuda_fp32": 67e12}
 REPS = 20                          # launches per timing
 AGREE_FP32 = 0.998                 # kernel path in fp32 vs plain fp32
 # With seeded random weights the logits' top-2 margins are small, so bf16
@@ -405,11 +412,74 @@ def _conv_inputs(rng, h, w, ci, co, device):
             t(rng.random(co) + 0.5), t(rng.standard_normal(co) * 0.1))
 
 
+def _fp32_readings(x, wt, scale, bias, stride, ci, ci2) -> dict:
+    """The conv in fp32 (the evaluation dtype) on the card: the route it
+    ran, its time, the plain version's, cuDNN's fp32 with TF32 off (the
+    same function) and with TF32 on (one TF32 pass: a different function,
+    read beside it), and the bound by the engine of the route (3xTF32:
+    three TF32 products a multiply-add on the tensor cores; the stem and
+    CUDA-core routes: fp32 on the CUDA cores), with the CUDA cores' bound
+    beside it."""
+    import torch
+    import torch.nn.functional as F
+    from fasterseg_tpu_torch.kernels import (conv, conv3x3_bn_relu,
+                                             conv3x3_bn_relu_plain,
+                                             input_parts, split_weights)
+    xa, x2 = ((x, None) if not ci2 else
+              (x[..., :ci].contiguous(), x[..., ci:].contiguous()))
+    # packed once, as the fp32 runner does
+    cw = split_weights(wt, input_parts(ci, ci2), torch.float32)
+    kernel = lambda: conv3x3_bn_relu(xa, cw, scale, bias, stride=stride,
+                                     x2=x2)
+    before = dict(conv.route_launches)
+    got = kernel()
+    route, = [r for r, n in conv.route_launches.items() if n != before[r]]
+    want = conv3x3_bn_relu_plain(x, wt, scale, bias, stride=stride)
+    tol = 1e-4 if stride == 1 else 2e-4
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    w_lib = (wt * scale).permute(3, 2, 0, 1).contiguous() \
+        .to(memory_format=torch.channels_last)
+    x_lib = x.permute(0, 3, 1, 2)              # NCHW view of NHWC memory
+
+    def library():
+        F.relu_(F.conv2d(x_lib, w_lib, bias, stride=stride, padding=1))
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library_ms = graph_ms(library)
+        torch.backends.cudnn.allow_tf32 = True
+        library_tf32_ms = graph_ms(library)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    h, w = x.shape[1], x.shape[2]
+    co = wt.shape[3]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    nbytes = (x.numel() + ho * wo * co + wt.numel() + 2 * co) * 4
+    ops = 2.0 * ho * wo * co * 9 * (ci + ci2)
+    cores = bound(nbytes, ops, "cuda_fp32")
+    engine, eng_ops = (("tensor_tf32", 3 * ops) if route == 3 else
+                       ("cuda_fp32", ops))
+    eng = bound(nbytes, eng_ops, engine)
+    return {"route": route,
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": graph_ms(kernel),
+            "plain_ms": graph_ms(lambda: conv3x3_bn_relu_plain(
+                x, wt, scale, bias, stride=stride)),
+            "library_ms": library_ms,
+            "library_tf32_ms": library_tf32_ms,
+            "engine": engine, "bound_ms": eng["bound_ms"],
+            "bound_by": eng["bound_by"],
+            "cuda_core_bound_ms": cores["bound_ms"],
+            "cuda_core_bound_by": cores["bound_by"]}
+
+
 def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0, timed=True):
     """One conv shape; with `ci2` the two-input form (the refine convs): the
     kernel reads x[..., :ci] and x[..., ci:] from two tensors, the plain and
     library versions take the concat. `timed=False` checks the kernel and
-    returns its errors only."""
+    returns its errors only; timed, the case is read in bf16 and in fp32
+    (`_fp32_readings`)."""
     import torch
     import torch.nn.functional as F
     from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
@@ -469,7 +539,8 @@ def _conv_case(rng, label, h, w, ci, co, stride, device, ci2=0, timed=True):
             "plain_ms": plain_ms, "library_ms": library_ms,
             "host_us": host_us(kernel), "library_host_us": host_us(library),
             **bound(nbytes, ops,
-                    "tensor_bf16" if tensor_cores else "cuda_fp32")}
+                    "tensor_bf16" if tensor_cores else "cuda_fp32"),
+            "fp32": _fp32_readings(x, wt, scale, bias, stride, ci, ci2)}
 
 
 def _halo_case(rng, label, h, w, ci, co, stride, halo, dtype, route, ci2=0,
@@ -478,9 +549,9 @@ def _halo_case(rng, label, h, w, ci, co, stride, halo, dtype, route, ci2=0,
     halo = (top, bottom) of its neighbours' rows around it (the spatial
     evaluation's blocks), against the plain version with the same halos,
     on the kernel route `route` of csrc/conv3x3_bn_relu.cu (0 the CUDA-core
-    kernel, 1 the Ci = 3 stem kernel, 2 the wgmma kernel); with `ci2` the
-    two-input form. Timed beside the launch without a halo on the block's
-    own h rows."""
+    kernel, 1 the Ci = 3 stem kernel, 2 the wgmma kernel in bf16, 3 in fp32
+    as 3xTF32); with `ci2` the two-input form. Timed beside the launch
+    without a halo on the block's own h rows."""
     import torch
     from fasterseg_tpu_torch import kernels
     from fasterseg_tpu_torch.kernels import conv as kconv
@@ -496,13 +567,15 @@ def _halo_case(rng, label, h, w, ci, co, stride, halo, dtype, route, ci2=0,
                         (t[..., :ci].contiguous(), t[..., ci:].contiguous()))
     xa, x2 = halves(x)
     ba, b2 = halves(x[:, top:top + h])
-    tensor_cores = bf16 and ci % 16 == 0 and ci2 % 16 == 0
-    cw = split_weights(wt, (ci, ci2) if ci2 else None) if bf16 else wt
+    tensor_cores = ci % 16 == 0 and ci2 % 16 == 0
+    cw = (split_weights(wt, (ci, ci2) if ci2 else None, dtype)
+          if tensor_cores else wt)
     run = lambda a, b, hl: conv3x3_bn_relu(a, cw, scale, bias, stride=stride,
                                            x2=b, halo=hl)
-    # the route the wrapper's plan gives this call (a fp32 concat is
-    # written and takes one input)
-    key = ((x.shape[1], w, ci, ci2, co, stride, 1, cw.ck, cw.bn, top, bottom)
+    # the route the wrapper's plan gives this call (a concat of other
+    # channel counts is written and takes one input)
+    key = ((x.shape[1], w, ci, ci2, co, stride, int(bf16), cw.ck, cw.bn, top,
+            bottom)
            if tensor_cores else
            (x.shape[1], w, ci + ci2, 0, co, stride, int(bf16), 0, 0, top,
             bottom))
@@ -626,6 +699,31 @@ def _upsample_case(rng, device):
             "edges": edges}
 
 
+def _conv_shapes() -> dict:
+    """The conv shapes the kernels phase reads, by kernel counter: (label,
+    H, W, Ci, Co, stride, Ci2), the last the second input's channels of the
+    refine conv read from two tensors (64 + 32)."""
+    from fasterseg_tpu_torch.models import DerivedNet, student_plan
+    net = DerivedNet(student_plan())
+    refine = net.refines32[1].conv[0]            # the concat 64+32 -> 64
+    arm_out = net.arms32[1].conv[0].out_channels  # its first input's channels
+    H, W = HW
+    return {
+        "conv3x3_bn_relu_s2": [
+            ("stem stage0", H, W, 3, 32, 2, 0),
+            ("stem stage1 entry", H // 2, W // 2, 32, 64, 2, 0),
+            ("teacher stem stage0", H, W, 3, 48, 2, 0)],
+        "conv3x3_bn_relu_s1": [
+            ("stem stage1 conv2", H // 4, W // 4, 64, 64, 1, 0),
+            ("refine concat", H // 8, W // 8, refine.in_channels,
+             refine.out_channels, 1, 0),
+            ("teacher 1/32", H // 32, W // 32, 384, 384, 1, 0),
+            ("student 1/32 cell", H // 32, W // 32, 64, 64, 1, 0),
+            ("teacher 1/32 cell", H // 32, W // 32, 192, 192, 1, 0),
+            ("refine, two inputs", H // 8, W // 8, arm_out,
+             refine.out_channels, 1, refine.in_channels - arm_out)]}
+
+
 def phase_kernels(seed: int) -> dict:
     import numpy as np
     import torch
@@ -636,32 +734,20 @@ def phase_kernels(seed: int) -> dict:
     refine = net.refines32[1].conv[0]            # the concat 64+32 -> 64
     arm_out = net.arms32[1].conv[0].out_channels  # its first input's channels
     H, W = HW
-    s2 = [("stem stage0", H, W, 3, 32, 2),
-          ("stem stage1 entry", H // 2, W // 2, 32, 64, 2),
-          ("teacher stem stage0", H, W, 3, 48, 2)]
-    s1 = [("stem stage1 conv2", H // 4, W // 4, 64, 64, 1),
-          ("refine concat", H // 8, W // 8, refine.in_channels,
-           refine.out_channels, 1),
-          ("teacher 1/32", H // 32, W // 32, 384, 384, 1),
-          ("student 1/32 cell", H // 32, W // 32, 64, 64, 1),
-          ("teacher 1/32 cell", H // 32, W // 32, 192, 192, 1)]
-    cases = {"conv3x3_bn_relu_s2": [_conv_case(rng, *c, device) for c in s2],
-             "conv3x3_bn_relu_s1": [_conv_case(rng, *c, device) for c in s1],
-             "upsample8_argmax": [_upsample_case(rng, device)]}
-    # the refine conv again, its concat read from two tensors (64 + 32)
-    cases["conv3x3_bn_relu_s1"].append(_conv_case(
-        rng, "refine, two inputs", H // 8, W // 8,
-        arm_out, refine.out_channels, 1, device,
-        ci2=refine.in_channels - arm_out))
+    cases = {name: [_conv_case(rng, *c[:6], device, ci2=c[6]) for c in shapes]
+             for name, shapes in _conv_shapes().items()}
+    cases["upsample8_argmax"] = [_upsample_case(rng, device)]
     # (S1) the halo mode on every route, at the blocks of a spatial
     # evaluation (the image's 1024 rows split over ranks)
     f32, b16 = torch.float32, torch.bfloat16
     ci2 = refine.in_channels - arm_out
     halo = [_halo_case(rng, *c, device=device) for c in (
-        ("stem entry", H // 2, W, 3, 32, 2, (1, 0), f32, 0),
-        ("stem stage1 conv2", H // 4, W // 4, 64, 64, 1, (1, 1), f32, 0),
-        ("refine concat", H // 8, W // 8, arm_out, refine.out_channels, 1,
-         (1, 1), f32, 0, ci2),
+        ("stem entry", H // 2, W, 3, 32, 2, (1, 0), f32, 1),
+        ("stem stage1 entry", H // 2, W // 2, 32, 64, 2, (1, 0), f32, 3),
+        ("stem stage1 conv2", H // 4, W // 4, 64, 64, 1, (1, 1), f32, 3),
+        ("refine, two inputs", H // 8, W // 8, arm_out, refine.out_channels,
+         1, (1, 1), f32, 3, ci2),
+        ("20 channels", H // 8, W // 8, 20, 40, 1, (1, 1), f32, 0),
         ("stem entry", H // 2, W, 3, 32, 2, (1, 0), b16, 1),
         ("stem stage1 entry", H // 2, W // 2, 32, 64, 2, (1, 0), b16, 2),
         ("stem stage1 conv2", H // 4, W // 4, 64, 64, 1, (1, 1), b16, 2),
@@ -773,6 +859,7 @@ def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
     cm = runner.classmap(x)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    routes = kernels.route_launch_counts()
     for k in launches:
         check(launches[k] > 0, f"{name}: kernel {k} was not launched")
 
@@ -782,7 +869,7 @@ def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
           f"{name}: class index out of range")
     row = {"phase": f"serve_{name}", "plan_lasts": list(plan.lasts),
            "input": f"1x{HW[0]}x{HW[1]}x3", "dtype": "bfloat16",
-           "launches": launches}
+           "launches": launches, "launches_by_route": routes}
     if logits is not None:
         check(tuple(logits.shape) == (1, *HW, plan.num_classes)
               and logits.dtype == torch.bfloat16,
@@ -806,10 +893,22 @@ def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
         row["plain_bf16_classmap_ms"] = call_ms(lambda: plain16.classmap(x),
                                                 reps=5)
         del plain16
+        row["graph_logits_fp32_ms"] = _fp32_logits_ms(plan, net, x)
         row["classmap_device"] = device_breakdown(lambda: runner.classmap(x))
         row["gpu"] = gpu_line()
     emit(row)
     return row
+
+
+def _fp32_logits_ms(plan, net, x) -> float:
+    """The fp32 runner's .logits of `x` (the evaluation forward) replayed
+    as a CUDA graph."""
+    import torch
+    from fasterseg_tpu_torch.models import InferenceRunner
+    runner = InferenceRunner(plan, net, dtype=torch.float32, device=DEVICE)
+    ms = graph_ms(lambda: runner.logits(x), reps=1)
+    del runner
+    return ms
 
 
 def _hist_d(a, b) -> float:
@@ -924,6 +1023,23 @@ def phase_eval(seed: int) -> dict:
             row["k16_forward_ms"] = call_ms(lambda: r.logits(x))
             row["k16_probs_argmax_hist_ms"] = call_ms(hist0)
             del logits, x, pred
+        elif name == "K32":
+            # every fp32 conv on the stem kernel or the 3xTF32 route
+            kernels.reset_launch_counts()
+            res = ev.run()
+            torch.cuda.synchronize()
+            routes = kernels.route_launch_counts()
+            row["K32_launches_by_route"] = routes
+            check(routes["conv3x3_bn_relu_wgmma_tf32x3"] > 0
+                  and routes["conv3x3_bn_relu_stem"] > 0,
+                  f"eval K32: fp32 routes not launched: {routes}")
+            check(routes["conv3x3_bn_relu_cuda_cores"] == 0
+                  and routes["conv3x3_bn_relu_wgmma_bf16"] == 0,
+                  f"eval K32: an fp32 conv left its routes: {routes}")
+            # where an fp32 evaluation image's time goes: device busy time
+            # against the host's wall clock
+            row["K32_device"] = device_breakdown(
+                lambda: ev.run(max_items=1), frames=2, top=6)
         else:
             res = ev.run()
         check(int(res.hist.sum()) == n_valid,
@@ -936,7 +1052,7 @@ def phase_eval(seed: int) -> dict:
                                     for s in ds])
         row[f"{name}_miou"] = res.mean_iu
         row[f"{name}_pixel_acc"] = res.pixel_acc
-        if name in ("K16", "P16"):
+        if name in ("K16", "K32", "P16"):
             row[f"{name}_ms_per_image"] = _run_ms(ev, EVAL_IMAGES)
         del r, ev
     row["d_K32_P32"] = _hist_d(hists["K32"], hists["P32"])
@@ -2675,11 +2791,15 @@ def phase_miou(epochs: int, save_dir: str):
                                                warn_only=before[2])
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        routes = kernels.route_launch_counts()
         # the steps are autograd over the plain net; every evaluation runs
-        # the conv kernels at both strides
+        # the conv kernels at both strides, in fp32: the stem kernel and
+        # the 3xTF32 route
         check(launches["conv3x3_bn_relu_s1"] > 0
               and launches["conv3x3_bn_relu_s2"] > 0,
               f"miou {stage}: conv launches {launches}")
+        check(routes["conv3x3_bn_relu_wgmma_tf32x3"] > 0,
+              f"miou {stage}: conv launches by route {routes}")
         for r in rows:
             check(math.isfinite(r["loss"]) and 0 <= r["val_mIoU"] <= 1,
                   f"miou {stage}: row {r}")
@@ -2696,6 +2816,7 @@ def phase_miou(epochs: int, save_dir: str):
         steps = epochs * cfg.niters_per_epoch
         row[stage] = {
             "jax_column": col, "rows": table, "launches": launches,
+            "launches_by_route": routes,
             "final_val_mIoU": rows[-1]["val_mIoU"],
             "ms_per_step": sum(r["train_s"] for r in rows) / steps * 1e3,
             "eval_s_per_epoch": statistics.mean(r["eval_s"] for r in rows),
@@ -3222,7 +3343,7 @@ def main() -> int:
     phase_reference()
     student = _serve("student", student_plan, args.seed, timed=True)
     _serve("teacher", teacher_plan, args.seed, timed=False)
-    _, eval_scenes = phase_eval(args.seed)
+    ev_row, eval_scenes = phase_eval(args.seed)
     pool, render_s = _train_pool(args.seed)
     emit({"phase": "train_pool", "scenes": TRAIN_POOL, "hw": list(HW),
           "render_s": render_s})
@@ -3281,6 +3402,23 @@ def main() -> int:
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
+    # the fp32 route (3xTF32 on the tensor cores), which every evaluation
+    # runs: its launches in eval_student's K32 run (4 scenes), its readings
+    # at its heaviest shape (stem stage1 conv2, 256x512 64->64)
+    c = kern["cases"]["conv3x3_bn_relu_s1"][0]
+    f32 = c["fp32"]
+    k32 = ev_row["K32_launches_by_route"]
+    summary.append({
+        "name": "conv3x3_bn_relu_fp32", "route": "cuda",
+        "source": "fasterseg_tpu_torch/csrc/conv3x3_bn_relu.cu",
+        "replaces": replaces["conv3x3_bn_relu_s1"],
+        "launches": k32["conv3x3_bn_relu_wgmma_tf32x3"],
+        "launches_eval_K32_by_route": k32,
+        "shape": c["shape"], "max_abs_err": f32["max_abs_err"],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "cuda_core_bound_ms": f32["cuda_core_bound_ms"],
+        "library_ms": f32["library_ms"]})
     check(set(sources) == set(student["launches"]), "kernel list")
     check(all(s in kbuild.SOURCES for s in sources.values()), "sources")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,

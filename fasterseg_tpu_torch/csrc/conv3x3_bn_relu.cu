@@ -11,8 +11,8 @@
 // activations as they are and take the stride as a template parameter.
 //
 // What bounds it on the H100 (NVIDIA H100 SXM: 132 SMs, 3.35 TB/s of HBM,
-// 989 TFLOP/s of dense bf16 on the tensor cores, 67 TFLOP/s of fp32 on the
-// CUDA cores, 227 KB of shared memory a block). Three regimes:
+// 989 TFLOP/s of dense bf16 and 495 of TF32 on the tensor cores, 67 TFLOP/s
+// of fp32 on the CUDA cores, 227 KB of shared memory a block). Three regimes:
 //   * large maps with few channels (the stem: 256x512 64->64 moves 33.6 MB,
 //     10 us of HBM traffic, for 9.7 GFLOP, 10 us of tensor-core time; twice
 //     that with the hi + lo weight split below). Bytes and operations bound
@@ -22,13 +22,18 @@
 //   * small maps with many channels (32x64 and 16x32, 128..384 channels):
 //     a few GFLOP over 16..32 pixel tiles. Operations bound it, and the
 //     card is empty unless the work is cut finer than one block per tile.
-//   * the stem entry (Ci = 3, stride 2, 1024x2048): 46 MB for 0.9 GFLOP,
-//     bound by bytes; 27 FMAs per output value fit the CUDA cores.
+//   * the stem entry (Ci = 3, stride 2, 1024x2048): 46 MB in bf16 (92 MB in
+//     fp32) for 0.9 GFLOP, bound by bytes; 27 FMAs per output value fit the
+//     CUDA cores.
+// In fp32 (every evaluation to mIoU) the same convs do the same operations,
+// which the CUDA cores' 67 TFLOP/s cannot carry (256x512 64->64: 0.144 ms at
+// the least); the tensor cores can, at fp32 accuracy, by splitting operands.
 //
-// What the design does. Three kernels behind one entry point:
-//   * conv3x3_wgmma_kernel: bf16 activations whose channel counts are
-//     multiples of 16. An implicit GEMM on wgmma (m64nNk16, bf16 in, fp32
-//     accumulators in registers). A block is one producer warp and one or two
+// What the design does. Three kernels behind one entry point, four routes
+// (the number `conv3x3_bn_relu_plan` returns):
+//   * conv3x3_wgmma_kernel<bf16> (route 2): bf16 activations whose channel
+//     counts are multiples of 16. An implicit GEMM on wgmma (m64nNk16, bf16
+//     in, fp32 accumulators in registers). A block is one producer warp and one or two
 //     consumer warpgroups and walks over work items (persistent: the grid is
 //     at most one block per SM). A work item is a tile of 4 or 8 output
 //     rows x 16 output columns, a block of 32 or 64 output channels, and a
@@ -72,14 +77,39 @@
 //         tile last (a counter per tile) adds them in a fixed order and runs
 //         the epilogue, so the result does not depend on the order blocks
 //         finish in.
-//   * conv3x3_stem_kernel: bf16, Ci = 3, stride 2, Co in {32, 48, 64}. A block
-//     stages the three input rows its 128 outputs need with 16-byte loads,
-//     holds the 27*Co weights in shared memory, computes every output
-//     channel (the input is read once), and writes its 128 x Co outputs,
-//     contiguous in memory, as 16-byte pieces through shared memory.
-//   * conv3x3_kernel: fp32 activations (the tests' bars) and any other
-//     channel count, on CUDA cores: one thread per output pixel and a block
-//     of 32 output channels.
+//   * conv3x3_wgmma_kernel<float> (route 3): fp32 activations whose channel
+//     counts are multiples of 16, as 3xTF32 on wgmma (m64nNk8, tf32 in).
+//     The same pipeline, patch and weight rings, counted in bytes: a chunk
+//     is 32 (or 16) fp32 channels, 128 (or 64) bytes a pixel, so the TMA
+//     box, the swizzle, ldmatrix's addresses and the B descriptor are the
+//     bf16 route's. ldmatrix.x4 on fp32 rows hands each lane exactly the
+//     m64k8 tf32 A fragment, which is split in registers: hi = tf32(a),
+//     lo = tf32(a - hi), both rounded to nearest (3 ALU operations an
+//     element a tap, a small share of the issue slots the wgmmas leave).
+//     The weights are packed as tf32 hi + lo in fp32 words. A k8 slice
+//     issues hi x [W_hi | W_lo] (n = 2 * BN) and lo x W_hi (n = BN, into the
+//     hi half of the accumulators): a product keeps ~2^-21 of itself, the
+//     dropped lo x lo term is below that. Split bf16 (hi, lo of 8 bits,
+//     the same three products at twice the rate) keeps only ~2^-16 and
+//     misses the JAX package's fp32 bars (1e-4 / 2e-4) on activations of
+//     8x unit scale; single-pass TF32 or bf16 misses them at any scale
+//     (tests/test_torch_conv_split.py holds all four against the JAX
+//     reference). The tensor cores truncate as they accumulate, so each
+//     (tap, chunk) step's products start from zero and the CUDA cores add
+//     the step's sum into an fp32 register sum, rounded to nearest. fp32
+//     never splits K and its outputs leave from the registers, so each
+//     output's sum runs in an order fixed by (Ci, Co, chunk, BN) alone: a
+//     block of an image split over H gets the whole image's bits.
+//   * conv3x3_stem_kernel<T> (route 1): bf16 or fp32, Ci = 3, stride 2, Co
+//     in {32, 48, 64}. A block stages the three input rows its 128 outputs
+//     need with 16-byte loads, holds the 27*Co weights in shared memory,
+//     computes every output channel with fp32 FMAs (the input is read
+//     once), and writes its 128 x Co outputs, contiguous in memory, as
+//     16-byte pieces through shared memory.
+//   * conv3x3_kernel (route 0): the channel counts no other route takes (not
+//     multiples of 16, and not the stem entry), in either dtype, on CUDA
+//     cores: one thread per output pixel and a block of 32 output channels.
+//     The shipped student and teacher never reach it.
 // Halo mode (spatial evaluation, an image split over H across ranks): the
 // input holds top + h + bottom rows, top and bottom each 0 or 1, where the
 // extra rows are a neighbouring block's edge rows. Every kernel reads input
@@ -87,7 +117,7 @@
 // buffer, so a halo row is read where the image's zero padding was; the
 // output holds the block's (h - 1) / S + 1 rows. The generic and stem
 // kernels shift their row index, the wgmma kernel its TMA start row.
-// In all three the pre-BN sum never leaves registers (or the fp32 scratch of
+// In all of them the pre-BN sum never leaves registers (or the fp32 scratch of
 // a split K): folded-BN scale/bias and ReLU are applied in the epilogue, and
 // the output is rounded once, to the activation type.
 
@@ -356,6 +386,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
+// fp32 -> tf32, rounded to nearest (ties away): the low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// D (64 x N fp32) = A (64 x 8 tf32, registers) * B (8 x N tf32, shared
+// memory, K-major, through a descriptor) + (add ? D : 0); N = 128, 64, 32. A is the
+// m64k8 tf32 fragment: a[0] (row g, k q), a[1] (g + 8, q), a[2] (g, q + 4),
+// a[3] (g + 8, q + 4) of the warp's 16 rows, which is what ldmatrix.x4 gives
+// from fp32 rows (each 8x8 b16 matrix is 8 rows x 4 fp32).
+#define WG_D8(i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t* a,
+                                           uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t* a,
+                                           uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t* a,
+                                           uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+#undef WG_D8
 // keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous wgmma's start and wait
 template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -370,34 +449,39 @@ constexpr int TC_DEPTH = 2;        // A-fragment buffers: wgmma groups in flight
                                    // (3 and 4 measured no faster on the H100)
 constexpr int TC_SMEM_LIMIT = 232448 - 1024;  // dynamic bytes a block may ask for
 
-// Geometry for stride S, CK input channels per chunk, BN output channels per
-// block and NWG consumer warpgroups (64 output pixels each).
-template <int S, int CK, int BN, int NWG>
+// Geometry for activations T (bf16, or fp32 taken as 3xTF32), stride S, CK
+// input channels per chunk (64 or 128 bytes of a pixel), BN output channels
+// per block and NWG consumer warpgroups (64 output pixels each).
+template <typename T, int S, int CK, int BN, int NWG>
 struct TcCfg {
+  static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int TH = 4 * NWG;             // output rows of a tile
   static constexpr int PW = (TC_TW - 1) * S + 3;  // patch width, pixels
   static constexpr int PH = (TH - 1) * S + 3;
-  static constexpr int CKB = CK * 2;             // bytes of a pixel's chunk
+  static constexpr int CKB = CK * (int)sizeof(T);  // bytes of a pixel's chunk
+  static constexpr int KS = CKB / 32;            // k slices a chunk: 32 bytes each,
+                                                 // k16 in bf16, k8 in tf32
   static constexpr int PATCH_BYTES = PW * PH * CKB;
   static constexpr int PATCH_STRIDE = (PATCH_BYTES + 1023) / 1024 * 1024;
-  static constexpr int W_BYTES = 2 * BN * CK * 2;  // one (tap, chunk) step: the hi
-                                                   // slab, then the lo slab
-  static constexpr uint32_t SWZ = CK == 64 ? 7 : 3;  // 128- or 64-byte swizzle
+  static constexpr int W_BYTES = 2 * BN * CKB;   // one (tap, chunk) step: the hi
+                                                 // slab, then the lo slab
+  static constexpr uint32_t SWZ = CKB == 128 ? 7 : 3;  // 128- or 64-byte swizzle
   static constexpr int THREADS = 128 * NWG + 32;
-  static constexpr int OUT_BYTES = 64 * BN * 2;  // a warpgroup's staged output
+  // a warpgroup's staged output (bf16 only: fp32 leaves from the registers)
+  static constexpr int OUT_BYTES = F32 ? 0 : 64 * BN * 2;
   static constexpr uint32_t OUT_SWZ = BN == 64 ? 7 : 3;
   // B descriptor without its address: 8 rows of CKB bytes per swizzle
   // group (stride byte offset), leading offset unused for swizzled K-major
   static constexpr uint64_t DESC =
       (uint64_t(1) << 16) | (uint64_t(8 * CKB >> 4) << 32) |
-      (uint64_t(CK == 64 ? 1 : 2) << 62);
+      (uint64_t(CKB == 128 ? 1 : 2) << 62);
 };
 
 struct TcArgs {
-  const __nv_bfloat16* wpk;  // packed weights [n block][chunk][tap][hi, lo][BN][CK]
+  const unsigned char* wpk;  // packed weights [n block][chunk][tap][hi, lo][BN][CK]
   const float* scale;
   const float* bias;
-  __nv_bfloat16* y;
+  void* y;
   float* scratch;            // split-K partial sums
   int* counters;             // one per (tile, n block), zero between launches
   int Co, Ho, Wo;
@@ -409,12 +493,12 @@ struct TcArgs {
   int tma_out;               // Co % 8 == 0: outputs leave by TMA stores
 };
 
-template <int S, int CK, int BN, int NWG>
-__global__ void __launch_bounds__(TcCfg<S, CK, BN, NWG>::THREADS)
+template <typename T, int S, int CK, int BN, int NWG>
+__global__ void __launch_bounds__(TcCfg<T, S, CK, BN, NWG>::THREADS)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
                      const __grid_constant__ CUtensorMap map2,
                      const __grid_constant__ CUtensorMap map_y, const TcArgs a) {
-  using C = TcCfg<S, CK, BN, NWG>;
+  using C = TcCfg<T, S, CK, BN, NWG>;
   extern __shared__ unsigned char smem_raw[];
   // barriers in the first KB, then the 1024-byte aligned rings
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -454,8 +538,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
     if (a.resident) {
       mbar_expect_tx(res_full, steps * C::W_BYTES);
       for (int t = 0; t < steps; ++t)
-        bulk_load(w0 + t * C::W_BYTES, a.wpk + (size_t)t * (C::W_BYTES / 2),
-                  C::W_BYTES, res_full);
+        bulk_load(w0 + t * C::W_BYTES, a.wpk + (size_t)t * C::W_BYTES, C::W_BYTES,
+                  res_full);
     }
     int ps = 0, ws = 0;
     uint32_t pph = 0, wph = 0;
@@ -478,9 +562,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
         if (!a.resident) {
           mbar_wait(w_empty(ws), wph ^ 1);
           mbar_expect_tx(w_full(ws), C::W_BYTES);
-          bulk_load(w0 + ws * C::W_BYTES,
-                    a.wpk + ((size_t)nb * steps + t) * (C::W_BYTES / 2), C::W_BYTES,
-                    w_full(ws));
+          bulk_load(w0 + ws * C::W_BYTES, a.wpk + ((size_t)nb * steps + t) * C::W_BYTES,
+                    C::W_BYTES, w_full(ws));
           if (++ws == a.ws) { ws = 0; wph ^= 1; }
         }
       }
@@ -496,7 +579,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
   // and its 16-byte half of a k16 slice
   const uint32_t p0 = (py * S) * C::PW + (lane & 15) * S;
   const uint32_t khalf = (lane >> 4) * 16;
-  constexpr int KS = CK / 16;
+  constexpr int KS = C::KS;
 
   int ps = 0, ws = 0;
   uint32_t pph = 0, wph = 0;
@@ -506,8 +589,17 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
   // the hi and lo slabs of a step are one B tile of 2 * BN rows: one wgmma
   // fills the products with hi in acc[0, BN / 2) and with lo behind them
   float acc[BN];
+  // fp32: the tensor cores sum a step's products (acc, started from zero
+  // each step) and the CUDA cores add each step's sum into `sum`
+  float sum[C::F32 ? BN / 2 : 1];
   constexpr int D = TC_DEPTH;
-  uint32_t f[D][KS][4];  // A fragments: a ring over steps
+  // bf16: A fragments, a ring over steps. fp32: the step's tf32 hi and lo
+  // fragments, read by its wgmmas until the next step waits for them (the
+  // raw fragments are split only then, which keeps the NWG = 2, BN = 64
+  // instantiations within their 168 registers)
+  constexpr int DF = C::F32 ? 1 : D;
+  uint32_t f[DF][KS][4];
+  uint32_t hl[C::F32 ? KS : 1][8];
 
   if (a.resident) mbar_wait(res_full, 0);
 
@@ -518,6 +610,10 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
 #pragma unroll
     for (int i = 0; i < BN; ++i) acc[i] = 0.f;
     fence_regs(acc);
+    if constexpr (C::F32) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
+    }
 
     auto step = [&](int t, uint32_t(&fr)[KS][4]) {
       const int chunk = t / 9, tap = t - 9 * chunk;
@@ -542,10 +638,43 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
         mbar_wait(w_full(ws), wph);
         wsm = w0 + ws * C::W_BYTES;
       }
+      if constexpr (C::F32) {
+        // the previous step's sums (its group is the only one in flight)
+        // into `sum`, in round-to-nearest: the tensor cores align and
+        // truncate as they add, and over all the steps in one accumulator
+        // that biased 32x64 384->384 by up to 3.2e-4 (outputs up to ~20;
+        // 1.7e-5 with a sum a step, H100), above the fp32 bars
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (t != t0) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i] + acc[i + BN / 2];
+        }
+        // the fp32 fragments split: hi = tf32(a), lo = tf32(a - hi) (a - hi
+        // is exact in fp32)
+#pragma unroll
+        for (int kc = 0; kc < KS; ++kc) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = __uint_as_float(fr[kc][e]);
+            hl[kc][e] = tf32_rna(v);
+            hl[kc][4 + e] = tf32_rna(v - __uint_as_float(hl[kc][e]));
+          }
+        }
+      }
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < KS; ++kc) {
-        wgmma_rs(acc, fr[kc], C::DESC | (((wsm + kc * 32) & 0x3FFFFu) >> 4));
+        const uint64_t desc = C::DESC | (((wsm + kc * 32) & 0x3FFFFu) >> 4);
+        if constexpr (C::F32) {
+          // hi x [W_hi | W_lo] into acc[0, BN) (the step's first slice
+          // starts it from zero), then lo x W_hi (the hi slab's BN rows)
+          // into acc[0, BN / 2): every output's products in one fixed order
+          wgmma_tf32(acc, hl[kc], desc, kc != 0);
+          wgmma_tf32(reinterpret_cast<float(&)[BN / 2]>(acc), hl[kc] + 4, desc, 1);
+        } else {
+          wgmma_rs(acc, fr[kc], desc);
+        }
       }
       wgmma_commit();
       wgmma_wait<D - 1>();  // the group committed D - 1 steps ago is complete
@@ -562,12 +691,17 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
     for (int t = t0; t < t1; t += D) {
 #pragma unroll
       for (int d = 0; d < D; ++d)
-        if (t + d < t1) step(t + d, f[d]);
+        if (t + d < t1) step(t + d, f[C::F32 ? 0 : d]);
     }
     wgmma_wait<0>();
     fence_regs(acc);
+    if constexpr (C::F32) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] += acc[i + BN / 2];
+      for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] + (acc[i] + acc[i + BN / 2]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += acc[i + BN / 2];
+    }
     for (; pending > 0; --pending) {
       if (lane == 0) mbar_arrive(w_empty(rel_ws));
       if (++rel_ws == a.ws) rel_ws = 0;
@@ -575,7 +709,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
 
     // accumulator layout of m64nN: d[4j], d[4j+1] are row 16*(warp % 4) + g,
     // columns 8j + 2q, +1; d[4j+2], d[4j+3] the same columns of row + 8
-    if (a.ksplit > 1) {
+    if (!C::F32 && a.ksplit > 1) {
       // partial sums to the scratch, each thread its own; the block that
       // arrives last at this tile's counter adds them in split order
       constexpr int CT = 128 * NWG;
@@ -607,7 +741,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
 
     const int oy = (tile / a.tiles_x) * C::TH + py;
     const int ox0 = (tile % a.tiles_x) * TC_TW;
-    if (a.tma_out) {
+    if (!C::F32 && a.tma_out) {
       // Through shared memory and one TMA store a warpgroup: its 4 rows x
       // 16 pixels x BN channels, 16-byte pieces swizzled so that the
       // fragments' 4-byte writes spread over the banks. The store clips
@@ -664,8 +798,15 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
         float v0 = fmaf(acc[4 * j + 2 * h], s0, b0);
         float v1 = fmaf(acc[4 * j + 2 * h + 1], s1, b1);
         if (a.relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
-        __nv_bfloat16* yp = a.y + ((size_t)oy * a.Wo + ox) * a.Co + co;
-        if (two && pairs) {
+        T* yp = static_cast<T*>(a.y) + ((size_t)oy * a.Wo + ox) * a.Co + co;
+        if constexpr (C::F32) {
+          if (two && pairs) {
+            *reinterpret_cast<float2*>(yp) = make_float2(v0, v1);
+          } else {
+            yp[0] = v0;
+            if (two) yp[1] = v1;
+          }
+        } else if (two && pairs) {
           *reinterpret_cast<__nv_bfloat162*>(yp) = __floats2bfloat162_rn(v0, v1);
         } else {
           yp[0] = __float2bfloat16(v0);
@@ -675,34 +816,42 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map1,
     }
   }
   // the last store has left shared memory before the block ends
-  if (a.tma_out && (tid & 127) == 0)
+  if (!C::F32 && a.tma_out && (tid & 127) == 0)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ------------------------------------------------------ the Ci = 3 stem entry
-// bf16, Ci = 3, stride 2, Co = CO in {32, 48, 64}. A block of 128 threads
-// computes 128 consecutive output pixels of one output row, all CO channels.
-// x: (H, W, 3), its first `top` rows a halo; w: (3, 3, 3, CO) fp32;
-// y: (Ho, Wo, CO).
+// bf16 or fp32 activations T, Ci = 3, stride 2, Co = CO in {32, 48, 64}. A
+// block of 128 threads computes 128 consecutive output pixels of one output
+// row, all CO channels. x: (H, W, 3), its first `top` rows a halo;
+// w: (3, 3, 3, CO) fp32; y: (Ho, Wo, CO).
 // Grid: (ceil(Wo / 128), Ho). (Two pixels a thread, to halve the weight reads
 // from shared memory, measured 4-9 % slower on the H100 and was not kept.)
 constexpr int ST_PX = 128;                         // output pixels per block
-constexpr int ST_ROW = ((2 * ST_PX + 1) * 6 + 15) / 16 * 16 + 48;  // staged bytes per
-                                                   // input row: 16-byte pieces and
-                                                   // a piece of slack each side
 
-template <int CO>
+template <typename T, int CO>
 __global__ void __launch_bounds__(ST_PX)
-conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+conv3x3_stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ scale, const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ y, int H, int W, int Ho, int Wo,
-                    int top, int relu) {
-  constexpr int PITCH = CO * 2 + 16;  // bytes per staged output pixel: 16-byte
-                                      // writes of neighbouring threads hit
-                                      // different banks
-  __shared__ __align__(16) unsigned char rows[3][ST_ROW];
+                    T* __restrict__ y, int H, int W, int Ho, int Wo, int top,
+                    int relu) {
+  constexpr int PXB = 3 * (int)sizeof(T);  // bytes of an input pixel
+  // staged bytes per input row: 16-byte pieces and a piece of slack each side
+  constexpr int ROW = ((2 * ST_PX + 1) * PXB + 15) / 16 * 16 + 48;
+  constexpr int VEC = 16 / (int)sizeof(T);  // outputs in a 16-byte piece
+  constexpr int PITCH = CO * (int)sizeof(T) + 16;  // bytes per staged output pixel:
+                                                   // 16-byte writes of neighbouring
+                                                   // threads hit different banks
+  constexpr int ROWS_BYTES = 3 * ROW, OUT_BYTES = ST_PX * PITCH;
+  // fp32 at Co = 64 would pass the 48 KB of static shared memory: its staged
+  // outputs then reuse the rows' bytes, after a barrier
+  constexpr bool SHARE = ROWS_BYTES + OUT_BYTES + 27 * CO * 4 > 48 * 1024;
+  __shared__ __align__(16) unsigned char buf[SHARE ? (ROWS_BYTES > OUT_BYTES ? ROWS_BYTES
+                                                                            : OUT_BYTES)
+                                                   : ROWS_BYTES + OUT_BYTES];
   __shared__ __align__(16) float ws[27 * CO];
-  __shared__ __align__(16) unsigned char outs[ST_PX * PITCH];
+  unsigned char* rows = buf;
+  unsigned char* outs = SHARE ? buf : buf + ROWS_BYTES;
 
   const int tid = threadIdx.x;
   const int ox0 = blockIdx.x * ST_PX;
@@ -717,7 +866,7 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   // shared memory. Pieces that would cross the tensor's ends are copied
   // element by element. Bytes outside the row are never used: the taps
   // that fall on padding are masked below.
-  const long long total = (long long)H * W * 6;
+  const long long total = (long long)H * W * PXB;
   const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
   const int cx0 = max(ix0, 0), cx1 = min(ix0 + 2 * ST_PX + 1, W);  // columns [cx0, cx1)
   int shift[3];  // byte offset in rows[r] of input column ix0
@@ -726,15 +875,16 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     const int iy = oy * 2 - 1 + top + r;
     shift[r] = 0;
     if (iy < 0 || iy >= H) continue;
-    const long long lo = ((long long)iy * W + cx0) * 6, hi = ((long long)iy * W + cx1) * 6;
+    const long long lo = ((long long)iy * W + cx0) * PXB;
+    const long long hi = ((long long)iy * W + cx1) * PXB;
     const long long lo16 = lo & ~15ll;
-    // column ix0 sits at (lo - lo16) - (cx0 - ix0) * 6 + 16: one piece of
+    // column ix0 sits at (lo - lo16) - (cx0 - ix0) * PXB + 16: one piece of
     // slack in front keeps the offset non-negative when ix0 = -1
-    shift[r] = (int)(lo - lo16) - (cx0 - ix0) * 6 + 16;
+    shift[r] = (int)(lo - lo16) - (cx0 - ix0) * PXB + 16;
     const int pieces = (int)((hi - lo16 + 15) >> 4);
     for (int v = tid; v < pieces; v += ST_PX) {
       const long long src = lo16 + 16ll * v;
-      unsigned char* dst = &rows[r][16 + 16 * v];
+      unsigned char* dst = rows + r * ROW + 16 + 16 * v;
       if (src + 16 <= total) {
         *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(xb + src));
       } else {
@@ -759,11 +909,11 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     for (int kx = 0; kx < 3; ++kx) {
       const int ix = ox * 2 - 1 + kx;
       const bool valid = ix >= 0 && ix < W;
-      const __nv_bfloat16* px = reinterpret_cast<const __nv_bfloat16*>(
-          &rows[ky][shift[ky] + (2 * tid + kx) * 6]);
+      const T* px = reinterpret_cast<const T*>(rows + ky * ROW + shift[ky] +
+                                               (2 * tid + kx) * PXB);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float xv = valid ? __bfloat162float(px[c]) : 0.f;
+        const float xv = valid ? to_f(px[c]) : 0.f;
         const float4* w4 = reinterpret_cast<const float4*>(ws + ((ky * 3 + kx) * 3 + c) * CO);
 #pragma unroll
         for (int j = 0; j < CO / 4; ++j) {
@@ -779,15 +929,16 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
 
   // epilogue into shared memory, then the block's 128 x CO outputs (one
   // contiguous span of y) leave as 16-byte pieces, a warp's store contiguous
+  if (SHARE) __syncthreads();  // every thread has read its rows
 #pragma unroll
-  for (int p = 0; p < CO / 8; ++p) {
-    alignas(16) __nv_bfloat16 pack[8];
+  for (int p = 0; p < CO / VEC; ++p) {
+    alignas(16) T pack[VEC];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int j = p * 8 + e;
+    for (int e = 0; e < VEC; ++e) {
+      const int j = p * VEC + e;
       float v = fmaf(acc[j], __ldg(scale + j), __ldg(bias + j));
       if (relu) v = fmaxf(v, 0.f);
-      pack[e] = __float2bfloat16(v);
+      pack[e] = from_f<T>(v);
     }
     *reinterpret_cast<uint4*>(&outs[tid * PITCH + p * 16]) =
         *reinterpret_cast<const uint4*>(pack);
@@ -795,8 +946,9 @@ conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   __syncthreads();
   const int npx = min(ST_PX, Wo - ox0);
   uint4* yv = reinterpret_cast<uint4*>(y + ((size_t)oy * Wo + ox0) * CO);
-  for (int v = tid; v < npx * (CO / 8); v += ST_PX)
-    yv[v] = *reinterpret_cast<const uint4*>(&outs[(v / (CO / 8)) * PITCH + (v % (CO / 8)) * 16]);
+  for (int v = tid; v < npx * (CO / VEC); v += ST_PX)
+    yv[v] = *reinterpret_cast<const uint4*>(
+        &outs[(v / (CO / VEC)) * PITCH + (v % (CO / VEC)) * 16]);
 }
 
 // ------------------------------------------------------------------- host side
@@ -827,18 +979,21 @@ int sm_count() {
   return n;
 }
 
-// (H, W, C) bf16 NHWC as a 3-D map (C, W, H) with a box of ck x pw x ph
+// (H, W, C) bf16 or fp32 NHWC as a 3-D map (C, W, H) with a box of
+// ck x pw x ph; ck channels are 64 or 128 bytes
 bool make_map(CUtensorMap* map, const void* x, int H, int W, int C, int ck, int pw,
-              int ph) {
+              int ph, bool f32) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return false;
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * e, (cuuint64_t)W * C * e};
   const cuuint32_t box[3] = {(cuuint32_t)ck, (cuuint32_t)pw, (cuuint32_t)ph};
   const cuuint32_t ones[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-             strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             ck == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,  // by box bytes
+  return enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             3, const_cast<void*>(x), dims, strides, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             ck * e == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -851,27 +1006,30 @@ struct TcPlan {
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-TcPlan tc_plan(int Ho, int Wo, int nch, int Co, int stride, int ck, int bn) {
+// ckb: bytes of a pixel's chunk (64 or 128); f32: fp32 activations (3xTF32)
+TcPlan tc_plan(int Ho, int Wo, int nch, int Co, int stride, int ckb, int bn, bool f32) {
   const int sms = sm_count();
   const int steps = 9 * nch;
   const int n_nb = ceil_div(Co, bn);
   const int tiles_x = ceil_div(Wo, TC_TW);
-  const int wbytes = bn * ck * 4;
+  const int wbytes = 2 * bn * ckb;
   // Cost in K steps of the slowest block: rounds over the SMs x (steps a
   // round, two warpgroups share the tensor cores) + a fixed cost a work item
   // (fill, epilogue). A split K pays for its scratch, fence, counter and the
   // last block's second pass: on the H100 about 2 us against 0.4 us a
   // step, so it is taken only where it saves many steps (16x32 256->256).
+  // fp32 never splits K: its sums must not depend on the map's size (a
+  // block of an image split over H gets the whole image's bits).
   TcPlan best{};
   long best_cost = -1;
   for (int nwg = 2; nwg >= 1; --nwg) {
     const int n_tiles = tiles_x * ceil_div(Ho, 4 * nwg);
     const int items = n_tiles * n_nb;
     const int pw = (TC_TW - 1) * stride + 3, ph = (4 * nwg - 1) * stride + 3;
-    const int patch = (pw * ph * ck * 2 + 1023) / 1024 * 1024;
-    // alignment slack + barriers + the warpgroups' staged outputs
-    const int fixed = 2048 + nwg * 64 * bn * 2;
-    for (int ks = 1; ks <= 4; ++ks) {
+    const int patch = (pw * ph * ckb + 1023) / 1024 * 1024;
+    // alignment slack + barriers + the warpgroups' staged bf16 outputs
+    const int fixed = 2048 + (f32 ? 0 : nwg * 64 * bn * 2);
+    for (int ks = 1; ks <= (f32 ? 1 : 4); ++ks) {
       if (ks > 1 && (items * ks > sms || steps / ks < 3)) break;
       TcPlan p{};
       p.nwg = nwg; p.ksplit = ks; p.n_tiles = n_tiles; p.tiles_x = tiles_x;
@@ -905,34 +1063,55 @@ TcPlan tc_plan(int Ho, int Wo, int nch, int Co, int stride, int ck, int bn) {
   return best;
 }
 
-template <int S, int CK, int BN, int NWG>
+template <typename T, int S, int CK, int BN, int NWG>
 cudaError_t launch_tc(const CUtensorMap& m1, const CUtensorMap& m2, const CUtensorMap& my,
                       const TcArgs& args, const TcPlan& p, cudaStream_t stream) {
-  auto kernel = conv3x3_wgmma_kernel<S, CK, BN, NWG>;
+  auto kernel = conv3x3_wgmma_kernel<T, S, CK, BN, NWG>;
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_LIMIT);
   if (rc != cudaSuccess) return rc;
-  kernel<<<p.grid, TcCfg<S, CK, BN, NWG>::THREADS, p.smem, stream>>>(m1, m2, my, args);
+  kernel<<<p.grid, TcCfg<T, S, CK, BN, NWG>::THREADS, p.smem, stream>>>(m1, m2, my, args);
   return cudaGetLastError();
 }
 
-template <int S, int CK, int BN>
+template <typename T, int S, int CK, int BN>
 cudaError_t launch_tc_nwg(const CUtensorMap& m1, const CUtensorMap& m2,
                           const CUtensorMap& my, const TcArgs& args, const TcPlan& p,
                           cudaStream_t stream) {
-  return p.nwg == 2 ? launch_tc<S, CK, BN, 2>(m1, m2, my, args, p, stream)
-                    : launch_tc<S, CK, BN, 1>(m1, m2, my, args, p, stream);
+  return p.nwg == 2 ? launch_tc<T, S, CK, BN, 2>(m1, m2, my, args, p, stream)
+                    : launch_tc<T, S, CK, BN, 1>(m1, m2, my, args, p, stream);
 }
 
-template <int S>
+// CK = CK_WIDE (128-byte chunks) or CK_WIDE / 2 (64-byte chunks) elements
+template <typename T, int S>
 cudaError_t launch_tc_s(int ck, int bn, const CUtensorMap& m1, const CUtensorMap& m2,
                         const CUtensorMap& my, const TcArgs& args, const TcPlan& p,
                         cudaStream_t stream) {
-  if (ck == 64)
-    return bn == 64 ? launch_tc_nwg<S, 64, 64>(m1, m2, my, args, p, stream)
-                    : launch_tc_nwg<S, 64, 32>(m1, m2, my, args, p, stream);
-  return bn == 64 ? launch_tc_nwg<S, 32, 64>(m1, m2, my, args, p, stream)
-                  : launch_tc_nwg<S, 32, 32>(m1, m2, my, args, p, stream);
+  constexpr int CK_WIDE = 128 / (int)sizeof(T);
+  if (ck == CK_WIDE)
+    return bn == 64 ? launch_tc_nwg<T, S, CK_WIDE, 64>(m1, m2, my, args, p, stream)
+                    : launch_tc_nwg<T, S, CK_WIDE, 32>(m1, m2, my, args, p, stream);
+  return bn == 64 ? launch_tc_nwg<T, S, CK_WIDE / 2, 64>(m1, m2, my, args, p, stream)
+                  : launch_tc_nwg<T, S, CK_WIDE / 2, 32>(m1, m2, my, args, p, stream);
+}
+
+template <typename T>
+cudaError_t launch_stem(const void* x, const float* w, const float* scale,
+                        const float* bias, void* y, int H, int W, int Co, int Ho, int Wo,
+                        int top, int relu, cudaStream_t s) {
+  dim3 grid((Wo + ST_PX - 1) / ST_PX, Ho);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (Co == 32)
+    conv3x3_stem_kernel<T, 32><<<grid, ST_PX, 0, s>>>(xt, w, scale, bias, yt, H, W, Ho, Wo,
+                                                      top, relu);
+  else if (Co == 48)
+    conv3x3_stem_kernel<T, 48><<<grid, ST_PX, 0, s>>>(xt, w, scale, bias, yt, H, W, Ho, Wo,
+                                                      top, relu);
+  else
+    conv3x3_stem_kernel<T, 64><<<grid, ST_PX, 0, s>>>(xt, w, scale, bias, yt, H, W, Ho, Wo,
+                                                      top, relu);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -953,13 +1132,18 @@ cudaError_t launch_generic(const void* x, const float* w, const float* scale,
   return cudaGetLastError();
 }
 
-bool valid_tile(int ck, int bn) { return (ck == 64 || ck == 32) && (bn == 64 || bn == 32); }
+// ck elements of 64 or 128 bytes, bn 32 or 64 output channels
+bool valid_tile(int ck, int bn, bool f32) {
+  const int ckb = ck * (f32 ? 4 : 2);
+  return (ckb == 128 || ckb == 64) && (bn == 64 || bn == 32);
+}
 
 }  // namespace
 
 // Which kernel serves a conv, and what the wgmma kernel needs from its
-// caller. out[0]: 0 generic CUDA-core kernel, 1 stem kernel, 2 wgmma kernel;
-// out[1]: floats of split-K scratch; out[2]: counters (ints, zero).
+// caller. out[0]: 0 generic CUDA-core kernel, 1 stem kernel, 2 wgmma kernel
+// in bf16, 3 wgmma kernel in fp32 (3xTF32); out[1]: floats of split-K
+// scratch; out[2]: counters (ints, zero).
 // ci2 = 0 for one input; ck, bn as the weights were packed (0, 0: not packed).
 // H counts the halo rows: top and bottom (each 0 or 1) of them belong to the
 // neighbouring blocks, and the output has (H - top - bottom - 1) / stride + 1
@@ -972,18 +1156,22 @@ extern "C" int conv3x3_bn_relu_plan(int H, int W, int ci1, int ci2, int Co, int 
   if (top < 0 || top > 1 || bottom < 0 || bottom > 1 || H - top - bottom < 1)
     return (int)cudaErrorInvalidValue;
   const int Ho = (H - top - bottom - 1) / stride + 1, Wo = (W - 1) / stride + 1;
-  if (is_bf16 && ci2 == 0 && ci1 == 3 && stride == 2 && (Co == 32 || Co == 48 || Co == 64) &&
+  const bool f32 = !is_bf16;
+  if (ci2 == 0 && ci1 == 3 && stride == 2 && (Co == 32 || Co == 48 || Co == 64) &&
       Ho <= 65535) {
     out[0] = 1;
     return 0;
   }
-  if (is_bf16 && ci1 % 16 == 0 && ci2 % 16 == 0 && valid_tile(ck, bn)) {
+  if (ci1 % 16 == 0 && ci2 % 16 == 0) {
+    // these channel counts run on the tensor cores only: weights not packed
+    // for them are refused, not served by the CUDA-core kernel
+    if (!valid_tile(ck, bn, f32)) return (int)cudaErrorInvalidValue;
     const int nch = ceil_div(ci1, ck) + ceil_div(ci2, ck);
-    const TcPlan p = tc_plan(Ho, Wo, nch, Co, stride, ck, bn);
+    const TcPlan p = tc_plan(Ho, Wo, nch, Co, stride, ck * (f32 ? 4 : 2), bn, f32);
     // no tile and ring fit in shared memory: refuse rather than launch a
     // zeroed plan
     if (p.nwg == 0) return (int)cudaErrorInvalidConfiguration;
-    out[0] = 2;
+    out[0] = f32 ? 3 : 2;
     if (p.ksplit > 1) {
       out[1] = p.n_work * 64 * p.nwg * bn;
       out[2] = p.n_tiles * p.n_nb;
@@ -997,8 +1185,8 @@ extern "C" int conv3x3_bn_relu_plan(int H, int W, int ci1, int ci2, int Co, int 
 // Launches the conv on `stream`; returns the CUDA error (0 when the launch
 // was accepted). x (H, W, ci1) and, with ci2 > 0, x2 (H, W, ci2): the conv
 // runs over their channel concat. w: (3, 3, ci1 + ci2, Co) HWIO fp32, used by
-// the CUDA-core kernels; wpk: the packed bf16 hi/lo weights (ck, bn as
-// packed), used by the wgmma kernel. scratch, counters: as
+// the CUDA-core kernels; wpk: the packed hi/lo weights (bf16, or tf32 in fp32
+// words, as the activations; ck, bn as packed), used by the wgmma kernel. scratch, counters: as
 // conv3x3_bn_relu_plan sized them (counters zero; left zero). x and x2 hold
 // H rows, the first `top` and the last `bottom` of them halo rows (0 or 1
 // each; see the plan).
@@ -1025,39 +1213,32 @@ extern "C" int conv3x3_bn_relu(const void* x, const void* x2, const void* w,
                                       top, relu, s);
   }
   if (route[0] == 1) {
-    dim3 grid((Wo + ST_PX - 1) / ST_PX, Ho);
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-    if (Co == 32)
-      conv3x3_stem_kernel<32><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, top,
-                                                     relu);
-    else if (Co == 48)
-      conv3x3_stem_kernel<48><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, top,
-                                                     relu);
-    else
-      conv3x3_stem_kernel<64><<<grid, ST_PX, 0, s>>>(xb, wf, sc, bi, yb, H, W, Ho, Wo, top,
-                                                     relu);
-    return (int)cudaGetLastError();
+    if (is_bf16)
+      return (int)launch_stem<__nv_bfloat16>(x, wf, sc, bi, y, H, W, Co, Ho, Wo, top, relu,
+                                             s);
+    return (int)launch_stem<float>(x, wf, sc, bi, y, H, W, Co, Ho, Wo, top, relu, s);
   }
+  const bool f32 = route[0] == 3;
   const int nch1 = ceil_div(ci1, ck), nch = nch1 + ceil_div(ci2, ck);
-  const TcPlan p = tc_plan(Ho, Wo, nch, Co, stride, ck, bn);
+  const TcPlan p = tc_plan(Ho, Wo, nch, Co, stride, ck * (f32 ? 4 : 2), bn, f32);
   const int pw = (TC_TW - 1) * stride + 3, ph = (4 * p.nwg - 1) * stride + 3;
   CUtensorMap m1, m2, my;
-  if (!make_map(&m1, x, H, W, ci1, ck, pw, ph)) return (int)cudaErrorInvalidValue;
-  // the output's map: a warpgroup stores 4 rows x 16 pixels x bn channels
-  const int tma_out = Co % 8 == 0;
+  if (!make_map(&m1, x, H, W, ci1, ck, pw, ph, f32)) return (int)cudaErrorInvalidValue;
+  // the output's map (bf16): a warpgroup stores 4 rows x 16 pixels x bn
+  // channels; fp32 outputs leave from the registers
+  const int tma_out = !f32 && Co % 8 == 0;
   if (!tma_out)
     my = m1;
-  else if (!make_map(&my, y, Ho, Wo, Co, bn, TC_TW, 4))
+  else if (!make_map(&my, y, Ho, Wo, Co, bn, TC_TW, 4, false))
     return (int)cudaErrorInvalidValue;
   if (ci2 == 0)
     m2 = m1;
-  else if (!make_map(&m2, x2, H, W, ci2, ck, pw, ph))
+  else if (!make_map(&m2, x2, H, W, ci2, ck, pw, ph, f32))
     return (int)cudaErrorInvalidValue;
   TcArgs args;
-  args.wpk = static_cast<const __nv_bfloat16*>(wpk);
+  args.wpk = static_cast<const unsigned char*>(wpk);
   args.scale = sc; args.bias = bi;
-  args.y = static_cast<__nv_bfloat16*>(y);
+  args.y = y;
   args.scratch = static_cast<float*>(scratch);
   args.counters = static_cast<int*>(counters);
   args.Co = Co; args.Ho = Ho; args.Wo = Wo;
@@ -1067,6 +1248,9 @@ extern "C" int conv3x3_bn_relu(const void* x, const void* x2, const void* w,
   args.relu = relu; args.resident = p.resident; args.ps = p.ps; args.ws = p.ws;
   args.top = top;
   args.tma_out = tma_out;
-  if (stride == 1) return (int)launch_tc_s<1>(ck, bn, m1, m2, my, args, p, s);
-  return (int)launch_tc_s<2>(ck, bn, m1, m2, my, args, p, s);
+  if (f32)
+    return (int)(stride == 1 ? launch_tc_s<float, 1>(ck, bn, m1, m2, my, args, p, s)
+                             : launch_tc_s<float, 2>(ck, bn, m1, m2, my, args, p, s));
+  return (int)(stride == 1 ? launch_tc_s<__nv_bfloat16, 1>(ck, bn, m1, m2, my, args, p, s)
+                           : launch_tc_s<__nv_bfloat16, 2>(ck, bn, m1, m2, my, args, p, s));
 }

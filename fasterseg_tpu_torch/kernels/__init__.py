@@ -6,7 +6,7 @@ version only for CPU tensors. Each counts its kernel launches.
 
 from . import conv, fused
 from .conv import (ConvWeights, conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn,
-                   split_weights, unpack_weights)
+                   input_parts, round_tf32, split_weights, unpack_weights)
 from .fused import upsample8_argmax, upsample8_argmax_plain
 
 
@@ -24,8 +24,16 @@ def halo_launch_counts() -> dict:
             "conv3x3_bn_relu_s2": conv.halo_launches[2]}
 
 
+def route_launch_counts() -> dict:
+    """Of the conv launches so far, those of each route of
+    csrc/conv3x3_bn_relu.cu (`conv.ROUTES`), by route name."""
+    return {f"conv3x3_bn_relu_{name}": conv.route_launches[r]
+            for r, name in conv.ROUTES.items()}
+
+
 def reset_launch_counts() -> None:
     conv.launches.update({1: 0, 2: 0})
     conv.halo_launches.update({1: 0, 2: 0})
+    conv.route_launches.update({r: 0 for r in conv.ROUTES})
     fused.launches["upsample8_argmax"] = 0
 

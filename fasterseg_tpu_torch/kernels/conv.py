@@ -5,9 +5,19 @@ and `conv3x3s2_bn_relu_s2d`). The port keeps NHWC activations and HWIO
 weights, the JAX package's public layouts; the planar, lane-padded and
 space-to-depth layouts of the Pallas kernels are not reproduced.
 
-The tensor-core kernel takes its weights split into bf16 hi + lo and packed
-in the layout of its B operand (`split_weights`), prepared once where the
-weights are folded.
+Routes (csrc/conv3x3_bn_relu.cu, `_plan`), by dtype and channel count:
+
+* channel counts that are multiples of 16: the tensor-core kernel, bf16
+  activations in bf16 (route 2), fp32 activations as 3xTF32 (route 3: each
+  operand split into tf32 hi + lo, three products, fp32-level accuracy);
+* Ci = 3 at stride 2 with Co in {32, 48, 64} (the stem entry): the stem
+  kernel, either dtype (route 1);
+* any other channel count, either dtype: the CUDA-core kernel (route 0).
+
+The tensor-core kernel takes its weights split into hi + lo and packed in
+the layout of its B operand (`split_weights`: bf16 halves for bf16
+activations, tf32 halves in fp32 words for fp32 ones), prepared once where
+the weights are folded.
 
 Halo mode (`halo=(top, bottom)`): the input is one block of an image split
 over H (parallel/spatial.py) with `top` rows of the block above and `bottom`
@@ -28,12 +38,15 @@ from ..ops.conv import fold_bn  # noqa: F401  (pallas/conv.py:38 counterpart)
 from . import build
 
 # launches of the CUDA kernel, by stride (the Pallas originals are two
-# kernels: the planar stride-1 one and the space-to-depth stride-2 one), and
-# of those the launches in halo mode
+# kernels: the planar stride-1 one and the space-to-depth stride-2 one), of
+# those the launches in halo mode, and the same launches by route
 launches = {1: 0, 2: 0}
 halo_launches = {1: 0, 2: 0}
+ROUTES = {0: "cuda_cores", 1: "stem", 2: "wgmma_bf16", 3: "wgmma_tf32x3"}
+route_launches = {r: 0 for r in ROUTES}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_SIZE = {torch.float32: 4, torch.bfloat16: 2}   # bytes of an element
 _MAX_GRID_Y = 65535     # the CUDA-core kernels: one block row per output row
 # split-K tile counters kept per device, zero between launches; launches
 # that split K must not overlap on two streams of one device
@@ -48,16 +61,23 @@ class ConvWeights:
     """A 3x3 conv's weights as the kernels take them.
 
     w: (3, 3, Ci, Co) HWIO float32, Ci the sum of `ci_parts`.
-    packed: bfloat16 (n blocks, chunks, 9 taps, 2, bn, ck): for each block of
-    `bn` output channels, chunk of `ck` input channels (each part of
-    `ci_parts` padded to whole chunks) and tap, the hi = bf16(w) and
-    lo = bf16(w - hi) slabs [output channel][input channel], their 16-byte
-    pieces swizzled as the tensor cores read them from shared memory."""
+    packed: (n blocks, chunks, 9 taps, 2, bn, ck) in the activations' dtype
+    (`dtype`): for each block of `bn` output channels, chunk of `ck` input
+    channels (each part of `ci_parts` padded to whole chunks) and tap, the
+    hi and lo slabs [output channel][input channel], their 16-byte pieces
+    swizzled as the tensor cores read them from shared memory. bfloat16:
+    hi = bf16(w), lo = bf16(w - hi); float32: hi = tf32(w), lo = tf32(w -
+    hi) (`round_tf32`), for the 3xTF32 route."""
     w: torch.Tensor
     packed: torch.Tensor
     ci_parts: Tuple[int, ...]
     ck: int
     bn: int
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activation dtype the packing serves."""
+        return self.packed.dtype
 
     def to(self, device) -> "ConvWeights":
         return ConvWeights(self.w.to(device).contiguous(),
@@ -65,40 +85,72 @@ class ConvWeights:
                            self.ci_parts, self.ck, self.bn)
 
 
-def _tile(ci_parts: Sequence[int], co: int) -> Tuple[int, int]:
-    """(ck, bn): input channels per chunk and output channels per block."""
-    ck = 64 if all(c % 64 == 0 for c in ci_parts) else 32
+def _tile(ci_parts: Sequence[int], co: int,
+          dtype: torch.dtype) -> Tuple[int, int]:
+    """(ck, bn): input channels per chunk (128 bytes a pixel where every
+    part fills whole chunks of that, else 64) and output channels per
+    block."""
+    wide = 128 // _SIZE[dtype]
+    ck = wide if all(c % wide == 0 for c in ci_parts) else wide // 2
     return ck, (32 if co <= 32 else 64)
 
 
-def _swizzle_index(bn: int, ck: int) -> torch.Tensor:
-    """For row n (ck bf16 = ck/8 pieces of 16 bytes) the piece that lands
-    in slot j: the 128-byte (ck = 64) or 64-byte (ck = 32) shared-memory
-    swizzle, byte address bits [4, 7) ^= bits [7, 10) (masked to the row
-    width). An involution, so it also undoes itself."""
+def _swizzle_index(bn: int, ck: int, size: int = 2) -> torch.Tensor:
+    """For row n (ck elements of `size` bytes, in pieces of 16 bytes) the
+    piece that lands in slot j: the 128-byte or 64-byte shared-memory
+    swizzle (by the row's bytes), byte address bits [4, 7) ^= bits [7, 10)
+    (masked to the row width). An involution, so it also undoes itself."""
+    row = ck * size
     n = torch.arange(bn)[:, None]
-    j = torch.arange(ck // 8)[None, :]
-    off = n * ck * 2 + j * 16
-    mask = 7 if ck == 64 else 3
-    return (((off ^ (((off >> 7) & mask) << 4)) - n * ck * 2) // 16)
+    j = torch.arange(row // 16)[None, :]
+    off = n * row + j * 16
+    mask = 7 if row == 128 else 3
+    return (((off ^ (((off >> 7) & mask) << 4)) - n * row) // 16)
+
+
+def input_parts(ci1: int, ci2: int = 0) -> Tuple[int, ...]:
+    """The inputs' channel counts as the kernel reads them, which
+    `split_weights` packs for: a second input (ci2 > 0) is read in place
+    where both counts are multiples of 16, else the wrapper concatenates
+    the two and the kernel reads one input of ci1 + ci2."""
+    if not ci2:
+        return (ci1,)
+    return (ci1, ci2) if ci1 % 16 == 0 and ci2 % 16 == 0 else (ci1 + ci2,)
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as float32: PTX's cvt.rna.tf32.f32, which the fp32 route applies
+    to its activations."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def split_weights(w: torch.Tensor,
-                  ci_parts: Optional[Sequence[int]] = None) -> ConvWeights:
-    """HWIO float32 weights -> `ConvWeights`: hi = bf16(w), lo = bf16(w - hi)
-    (hi + lo keeps ~16 mantissa bits of w), packed for the tensor-core
-    kernel. `ci_parts` are the channel counts of the inputs the conv is
-    applied to (a concat read from several tensors); default one input."""
+                  ci_parts: Optional[Sequence[int]] = None,
+                  dtype: torch.dtype = torch.bfloat16) -> ConvWeights:
+    """HWIO float32 weights -> `ConvWeights` packed for the tensor-core
+    kernel with activations of `dtype`: bfloat16, hi = bf16(w), lo =
+    bf16(w - hi) (hi + lo keeps ~16 mantissa bits of w); float32, hi =
+    tf32(w), lo = tf32(w - hi) (~22 bits, the 3xTF32 route).
+    `ci_parts` are the channel counts of the inputs the conv is applied to
+    (a concat read from several tensors); default one input."""
     if w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.dtype != torch.float32:
         raise ValueError(f"w must be (3, 3, Ci, Co) float32, got "
                          f"{tuple(w.shape)} {w.dtype}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
     ci, co = w.shape[2], w.shape[3]
     ci_parts = (ci,) if ci_parts is None else tuple(int(c) for c in ci_parts)
     if sum(ci_parts) != ci or any(c <= 0 for c in ci_parts):
         raise ValueError(f"ci_parts {ci_parts} do not add up to Ci = {ci}")
-    ck, bn = _tile(ci_parts, co)
-    hi = w.bfloat16()
-    lo = (w - hi.float()).bfloat16()
+    ck, bn = _tile(ci_parts, co, dtype)
+    if dtype == torch.bfloat16:
+        hi = w.bfloat16()
+        lo = (w - hi.float()).bfloat16()
+    else:
+        hi = round_tf32(w)
+        lo = round_tf32(w - hi)
     both = torch.stack([hi, lo], dim=0).reshape(2, 9, ci, co)
     # pad every part to whole chunks and the output channels to whole blocks
     parts, start = [], 0
@@ -109,8 +161,9 @@ def split_weights(w: torch.Tensor,
     both = torch.cat(parts, dim=2)                   # (2, 9, chunks*ck, nb*bn)
     nch, nb = both.shape[2] // ck, both.shape[3] // bn
     both = both.reshape(2, 9, nch, ck, nb, bn).permute(4, 2, 1, 0, 5, 3)
-    pieces = both.reshape(nb, nch, 9, 2, bn, ck // 8, 8)
-    idx = _swizzle_index(bn, ck).to(w.device)
+    per = 16 // _SIZE[dtype]                         # elements a 16-byte piece
+    pieces = both.reshape(nb, nch, 9, 2, bn, ck // per, per)
+    idx = _swizzle_index(bn, ck, _SIZE[dtype]).to(w.device)
     packed = pieces[..., torch.arange(bn, device=w.device)[:, None], idx, :]
     return ConvWeights(w.contiguous(),
                        packed.reshape(nb, nch, 9, 2, bn, ck).contiguous(),
@@ -121,8 +174,9 @@ def unpack_weights(cw: ConvWeights) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) as (3, 3, Ci, Co) float32 from `cw.packed`: the inverse of
     the packing in `split_weights`."""
     nb, nch, _, _, bn, ck = cw.packed.shape
-    pieces = cw.packed.reshape(nb, nch, 9, 2, bn, ck // 8, 8)
-    idx = _swizzle_index(bn, ck).to(cw.packed.device)
+    per = 16 // _SIZE[cw.dtype]
+    pieces = cw.packed.reshape(nb, nch, 9, 2, bn, ck // per, per)
+    idx = _swizzle_index(bn, ck, _SIZE[cw.dtype]).to(cw.packed.device)
     rows = torch.arange(bn, device=cw.packed.device)[:, None]
     both = pieces[..., rows, idx, :].reshape(nb, nch, 9, 2, bn, ck)
     both = both.permute(3, 2, 1, 5, 0, 4).reshape(2, 9, nch * ck, nb * bn)
@@ -152,8 +206,7 @@ def _kernel():
 def _plan(key: tuple) -> Tuple[int, ...]:
     """(route, scratch floats, counters) of the conv `key` = (H, W, ci1,
     ci2, co, stride, is_bf16, ck, bn, top, bottom), H with the halo rows,
-    from the library's own tile choice; route 2 is the tensor-core
-    kernel."""
+    from the library's own tile choice; `ROUTES` names the route."""
     got = _plans.get(key)
     if got is None:
         out = (ctypes.c_int * 3)()
@@ -235,13 +288,16 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
     With `x2` (1, H, W, Ci2), same dtype and device, the conv runs over the
     channel concat [x, x2] (w has Ci + Ci2 input channels) at stride 1. The
     tensor-core kernel reads the two tensors in place where both channel
-    counts are multiples of 16 and the activations bfloat16; for any other
-    count or dtype the wrapper concatenates them first.
+    counts are multiples of 16; for any other count the wrapper
+    concatenates them first.
 
-    A CUDA tensor runs a kernel: bfloat16 with channel counts that are
-    multiples of 16 on the tensor cores (float32 weights are split and
-    packed on the fly; pass `ConvWeights` to do that once), everything else
-    on CUDA cores. A CPU tensor runs the plain version.
+    A CUDA tensor runs a kernel (module docstring): channel counts that are
+    multiples of 16 on the tensor cores, bfloat16 as bf16 and float32 as
+    3xTF32; the Ci = 3 stem entry on the stem kernel; any other count on
+    CUDA cores. A CPU tensor runs the plain version. Raw float32 `w` is
+    split and packed on every call; pass the `ConvWeights` of
+    `split_weights(w, input_parts(ci, ci2), x.dtype)` to do that once.
+    `ConvWeights` packed for another dtype or other inputs raise.
 
     `halo` = (top, bottom), each 0 or 1: x (and x2) is a block of rows of a
     taller image with that many of its neighbours' rows above and below it
@@ -252,6 +308,12 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
         w = cw.w
     top, bottom = halo = (int(halo[0]), int(halo[1]))
     _check(x, w, scale, bias, stride, x2, halo)
+    if cw is not None:
+        parts = input_parts(x.shape[3], 0 if x2 is None else x2.shape[3])
+        if cw.dtype != x.dtype or cw.ci_parts != parts:
+            raise ValueError(f"weights packed for {cw.dtype} inputs of "
+                             f"{cw.ci_parts} channels, given {x.dtype} of "
+                             f"{parts}")
     if x2 is not None and stride != 1:
         raise ValueError("a second input is taken at stride 1 only")
     if x.device.type == "cpu":
@@ -260,15 +322,14 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     bf16 = x.dtype == torch.bfloat16
-    if x2 is not None and not (bf16 and x.shape[3] % 16 == 0
-                               and x2.shape[3] % 16 == 0):
+    if x2 is not None and not (x.shape[3] % 16 == 0 and x2.shape[3] % 16 == 0):
         x, x2 = torch.cat([x, x2], dim=-1), None
     _, H, W, ci1 = x.shape
     ci2 = 0 if x2 is None else x2.shape[3]
     parts = (ci1,) if x2 is None else (ci1, ci2)
-    tensor_cores = bf16 and all(c % 16 == 0 for c in parts)
-    if tensor_cores and (cw is None or cw.ci_parts != parts):
-        cw = split_weights(w, parts)
+    tensor_cores = all(c % 16 == 0 for c in parts)
+    if tensor_cores and cw is None:
+        cw = split_weights(w, parts, x.dtype)
     tensors = [("x", x), ("w", w), ("scale", scale), ("bias", bias)]
     if x2 is not None:
         tensors.append(("x2", x2))
@@ -282,7 +343,7 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
     ho, wo = (H - top - bottom - 1) // stride + 1, (W - 1) // stride + 1
     route, n_scratch, n_counters = _plan(
         (H, W, ci1, ci2, co, stride, int(bf16), ck, bn, top, bottom))
-    if route != 2 and ho > _MAX_GRID_Y:
+    if route in (0, 1) and ho > _MAX_GRID_Y:
         raise ValueError(f"output height {ho} exceeds the CUDA-core kernels' "
                          f"grid limit of {_MAX_GRID_Y} rows")
     scratch = counters = None
@@ -311,6 +372,7 @@ def conv3x3_bn_relu(x, w: Union[torch.Tensor, ConvWeights], scale, bias,
     if rc != 0:
         raise RuntimeError(f"conv3x3_bn_relu launch failed: CUDA error {rc}")
     launches[stride] += 1
+    route_launches[route] += 1
     if top or bottom:
         halo_launches[stride] += 1
     return y

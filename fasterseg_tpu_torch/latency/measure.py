@@ -207,18 +207,20 @@ def build_key(name: str) -> KeyOp:
 
 
 @torch.no_grad()
-def serving_route(op: KeyOp, device: Device = "cuda"
+def serving_route(op: KeyOp, device: Device = "cuda",
+                  dtype: torch.dtype = torch.bfloat16
                   ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
     """`op`'s forward as the serving path runs it (models/fast_body.py), on
-    NHWC input, with the weights folded and packed once and moved to
-    `device`; None for the identity skip. On a CUDA tensor every 3x3 conv
-    launches the conv kernel; on a CPU tensor the plain versions run."""
+    NHWC input of `dtype`, with the weights folded and packed once for it
+    and moved to `device`; None for the identity skip. On a CUDA tensor
+    every 3x3 conv launches the conv kernel; on a CPU tensor the plain
+    versions run."""
     device = resolve_device(device)
     m = op.module
     if m is None:
         return None
     if op.kind == "op":
-        p = _to(_fold_cell(m), device)
+        p = _to(_fold_cell(m, dtype), device)
         idx, stride = op.index, op.stride
         return lambda x: _run_cell(idx, x, p, stride)
     if op.kind == "ConvNorm":
@@ -226,14 +228,14 @@ def serving_route(op: KeyOp, device: Device = "cuda"
         if op.kernel == 1:
             p1 = _to(fold1x1(conv, bn), device)
             return lambda x: _conv1x1(x, p1)
-        p3 = _to(fold3x3(conv, bn), device)
+        p3 = _to(fold3x3(conv, bn, dtype=dtype), device)
         stride = op.stride
         return lambda x: conv3x3_bn_relu(x, *p3, stride=stride)
     if op.kind == "ff":
         p1 = _to(fold1x1(m.conv_1x1.conv, m.conv_1x1.bn), device)
         return lambda x: _conv1x1(x, p1)
     if op.kind == "head":
-        p3 = _to(fold3x3(m.conv_3x3.conv, m.conv_3x3.bn), device)
+        p3 = _to(fold3x3(m.conv_3x3.conv, m.conv_3x3.bn, dtype=dtype), device)
         cls = _to(fold1x1(m.conv_1x1, None), device)
         return lambda x: _conv1x1(conv3x3_bn_relu(x, *p3), cls, relu=False)
     raise KeyError(op.kind)
@@ -257,7 +259,7 @@ def measured_provider(dtype: torch.dtype = torch.bfloat16,
         ms = floor_ms
         if op.module is not None:
             init_random_(op.module, 0)
-            fn = serving_route(op, device)
+            fn = serving_route(op, device, dtype)
             g = torch.Generator().manual_seed(0)
             x = torch.randn(op.shape, generator=g).to(device=device,
                                                       dtype=dtype)

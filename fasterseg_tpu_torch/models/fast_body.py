@@ -36,7 +36,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.plan import NetworkPlan
-from ..kernels.conv import ConvWeights, conv3x3_bn_relu, split_weights
+from ..kernels.conv import (ConvWeights, conv3x3_bn_relu, input_parts,
+                            split_weights)
 from ..ops.conv import BatchNorm, Conv
 from ..ops.primitives import FactorizedReduce
 from ..ops.resize import (downsample_half, downsample_half_rows, in_float64,
@@ -46,22 +47,28 @@ from ..parallel.spatial import Block
 from .derived import DerivedNet, cell_key
 
 # Weights keep fp32 accuracy whatever the activation dtype: they are a few
-# hundred KB, and the tensor-core conv kernel takes each weight as bf16
-# hi + lo, split once here (`split_weights`); rounding them to bf16 (as the
-# JAX package does for the MXU) would add error for nothing.
+# hundred KB, and the tensor-core conv kernel takes each weight as hi + lo
+# (bf16 halves for bf16 activations, tf32 halves for fp32 ones), split once
+# here (`split_weights`); rounding them to bf16 (as the JAX package does for
+# the MXU) would add error for nothing.
 # (ConvWeights of w (3,3,Ci,Co) HWIO fp32, scale (Co,) fp32, bias (Co,) fp32)
 Folded3x3 = Tuple[ConvWeights, torch.Tensor, torch.Tensor]
 # (w (Ci,Co) fp32, scale (Co,) or None, bias (Co,))
 Folded1x1 = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
 
 
-def fold3x3(conv: Conv, bn: BatchNorm, first: Optional[int] = None) -> Folded3x3:
+def fold3x3(conv: Conv, bn: BatchNorm, first: Optional[int] = None,
+            dtype: torch.dtype = torch.bfloat16) -> Folded3x3:
     """`first`: channels of the first of two inputs, for a conv that is
-    applied to a concat (the rest belong to the second)."""
+    applied to a concat (the rest belong to the second; packed for
+    `input_parts`); `dtype`: the
+    activations' (float32 packs the weights for the 3xTF32 route, any other
+    for the bf16 one)."""
     w = conv.weight.detach().permute(2, 3, 1, 0).float().contiguous()
     scale, bias = bn.folded()
-    parts = None if first is None else (first, w.shape[2] - first)
-    return (split_weights(w, parts), scale.detach().contiguous(),
+    parts = None if first is None else input_parts(first, w.shape[2] - first)
+    dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    return (split_weights(w, parts, dtype), scale.detach().contiguous(),
             bias.detach().contiguous())
 
 
@@ -76,40 +83,44 @@ def fold1x1(conv: Conv, bn: Optional[BatchNorm]) -> Folded1x1:
     return _w1x1(conv), scale.detach(), bias.detach()
 
 
-def _fold_cell(op: torch.nn.Module) -> Dict:
+def _fold_cell(op: torch.nn.Module, dtype: torch.dtype = torch.bfloat16) -> Dict:
     if isinstance(op, FactorizedReduce):
         if op.stride == 1:                           # identity skip
             return {}
         scale, bias = op.bn.folded()
         return {"fr": (_w1x1(op.conv1), _w1x1(op.conv2), scale.detach(),
                        bias.detach())}
-    p = {"c0": fold3x3(op.conv1, op.bn1)}
+    p = {"c0": fold3x3(op.conv1, op.bn1, dtype=dtype)}
     if hasattr(op, "conv2"):
-        p["c1"] = fold3x3(op.conv2, op.bn2)
+        p["c1"] = fold3x3(op.conv2, op.bn2, dtype=dtype)
     return p
 
 
 @torch.no_grad()
-def fold_weights(net: DerivedNet) -> Dict:
-    """Folded BN and fp32 weights of `net` for fast_stem / fast_body."""
-    stem = [fold3x3(net.stem[0].conv[0], net.stem[0].conv[1])]
+def fold_weights(net: DerivedNet, dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Folded BN and fp32 weights of `net` for fast_stem / fast_body, the 3x3
+    convs' packed for activations of `dtype`."""
+    stem = [fold3x3(net.stem[0].conv[0], net.stem[0].conv[1], dtype=dtype)]
     for stage in list(net.stem)[1:]:
-        stem += [fold3x3(stage.conv1, stage.bn1),
-                 fold3x3(stage.conv2, stage.bn2)]
+        stem += [fold3x3(stage.conv1, stage.bn1, dtype=dtype),
+                 fold3x3(stage.conv2, stage.bn2, dtype=dtype)]
     fw = {"stem": stem,
-          "cells": {k: _fold_cell(c._op._op) for k, c in net.cells.items()},
+          "cells": {k: _fold_cell(c._op._op, dtype)
+                    for k, c in net.cells.items()},
           "ffm": fold1x1(net.ffm.conv_1x1.conv, net.ffm.conv_1x1.bn),
-          "head3": fold3x3(net.heads8.conv_3x3.conv, net.heads8.conv_3x3.bn),
+          "head3": fold3x3(net.heads8.conv_3x3.conv, net.heads8.conv_3x3.bn,
+                           dtype=dtype),
           "cls": fold1x1(net.heads8.conv_1x1, None)}
     if hasattr(net, "arms32"):
         fw["arms32"] = [fold1x1(m.conv[0], m.conv[1]) for m in net.arms32]
         # a refine conv reads [the ARM's upsampled output, the branch's map]
-        fw["refines32"] = [fold3x3(m.conv[0], m.conv[1], arm[0].shape[1])
+        fw["refines32"] = [fold3x3(m.conv[0], m.conv[1], arm[0].shape[1],
+                                   dtype)
                            for m, arm in zip(net.refines32, fw["arms32"])]
     if hasattr(net, "arms16"):
         fw["arms16"] = fold1x1(net.arms16.conv[0], net.arms16.conv[1])
         fw["refines16"] = fold3x3(net.refines16.conv[0], net.refines16.conv[1],
-                                  fw["arms16"][0].shape[1])
+                                  fw["arms16"][0].shape[1], dtype)
     return fw
 
 

@@ -79,7 +79,7 @@ class InferenceRunner:
         self.folded: Dict = {}
         self.net = None
         if fast_stem_enabled:
-            self.folded = _to(fold_weights(net), self.device)
+            self.folded = _to(fold_weights(net, dtype), self.device)
         if not self.fast_body_enabled:
             # the plain network: convs in the compute dtype, BN in fp32
             self.net = copy.deepcopy(net).to(self.device).eval()

@@ -16,7 +16,7 @@ import torch
 from fasterseg_tpu_torch import kernels
 from fasterseg_tpu_torch.kernels import fused
 from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
-                                         conv3x3_bn_relu_plain,
+                                         conv3x3_bn_relu_plain, input_parts,
                                          split_weights, upsample8_argmax,
                                          upsample8_argmax_plain)
 from _torch_upsample_cases import UPSAMPLE_SHAPES, upsample_inputs
@@ -103,7 +103,7 @@ def test_conv_kernel_two_inputs(cuda_device, gen, H, W, c1, c2, co):
                                rtol=8e-3, atol=8e-3)
     want = conv3x3_bn_relu_plain(a.float(), w, s, b, x2=c.float())
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
-    # fp32 activations: the wrapper concatenates for the CUDA-core kernel
+    # fp32 activations: the 3xTF32 route reads the two tensors in place
     got32 = conv3x3_bn_relu(x[..., :c1].contiguous(), w, s, b,
                             x2=x[..., c1:].contiguous())
     torch.testing.assert_close(got32, conv3x3_bn_relu_plain(x, w, s, b),
@@ -111,10 +111,11 @@ def test_conv_kernel_two_inputs(cuda_device, gen, H, W, c1, c2, co):
 
 
 # Halo mode (a block of an image split over H, a neighbour's row above and/or
-# below it): every route in fp32 (the CUDA-core kernel) and bf16 (the Ci = 3
-# stem kernel; the wgmma kernel with one and two inputs, resident weights
-# and a split K), both strides, odd blocks at stride 2 that read the row
-# below, and blocks at the image's top or bottom (one halo).
+# below it): every route in fp32 and bf16 (the Ci = 3 stem kernel; the wgmma
+# kernel with one and two inputs, resident weights and, in bf16, a split K;
+# the CUDA-core kernel at Ci = 20), both strides, odd blocks at
+# stride 2 that read the row below, and blocks at the image's top or bottom
+# (one halo).
 @pytest.mark.parametrize("h,W,ci,ci2,co,stride,halo", [
     (64, 128, 3, 0, 32, 2, (1, 0)), (33, 130, 3, 0, 48, 2, (1, 1)),
     (32, 64, 64, 0, 64, 1, (1, 1)), (17, 33, 32, 0, 64, 2, (1, 1)),
@@ -179,6 +180,101 @@ def test_conv_kernel_repeats_bit_for_bit(cuda_device, gen):
     first = conv3x3_bn_relu(xb, cw, s, b)
     for _ in range(5):
         assert torch.equal(conv3x3_bn_relu(xb, cw, s, b), first)
+
+
+# The fp32 route's shapes on the serving and evaluation paths at 1024x2048
+# (chip_smoke.py's `kernels` phase): (H, W, Ci, Ci2, Co, stride)
+FP32_SHAPES = [
+    (1024, 2048, 3, 0, 32, 2),      # stem stage0
+    (512, 1024, 32, 0, 64, 2),      # stem stage1 entry
+    (1024, 2048, 3, 0, 48, 2),      # teacher stem stage0
+    (256, 512, 64, 0, 64, 1),       # stem stage1 conv2
+    (128, 256, 96, 0, 64, 1),       # refine concat, one input
+    (128, 256, 64, 32, 64, 1),      # refine concat, two inputs
+    (32, 64, 64, 0, 64, 1),         # student 1/32 cell
+    (32, 64, 192, 0, 192, 1),       # teacher 1/32 cell
+    (32, 64, 384, 0, 384, 1)]       # teacher 1/32
+
+
+def _fp32_conv(x, w, s, b, stride, ci, halo=(0, 0)):
+    """The wrapper on fp32 `x`, its channels [ci:] as a second input when
+    w has more than ci input channels; returns (y, the route it ran)."""
+    from fasterseg_tpu_torch.kernels import conv as kconv
+    xa, x2 = ((x, None) if w.shape[2] == ci else
+              (x[..., :ci].contiguous(), x[..., ci:].contiguous()))
+    before = dict(kconv.route_launches)
+    y = conv3x3_bn_relu(xa, w, s, b, stride=stride, x2=x2, halo=halo)
+    ran = [r for r, n in kconv.route_launches.items() if n != before[r]]
+    assert len(ran) == 1 and kconv.route_launches[ran[0]] == before[ran[0]] + 1
+    return y, ran[0]
+
+
+@pytest.mark.parametrize("halo", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("H,W,ci,ci2,co,stride", FP32_SHAPES)
+def test_fp32_route_matches_plain(cuda_device, gen, H, W, ci, ci2, co, stride,
+                                  halo):
+    """fp32 at every shape of the fp32 path, one and two inputs, every halo:
+    the Ci = 3 entry on the stem kernel (route 1), every other shape on the
+    tensor cores as 3xTF32 (route 3), within the JAX package's fp32 bars."""
+    top, bottom = halo
+    x, w, s, b = _conv_args(gen, H + top + bottom, W, ci + ci2, co,
+                            cuda_device)
+    got, route = _fp32_conv(x, w, s, b, stride, ci, halo)
+    want = conv3x3_bn_relu_plain(x, w, s, b, stride=stride, halo=halo)
+    torch.cuda.synchronize()
+    assert route == (1 if ci == 3 else 3)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = 1e-4 if stride == 1 else 2e-4
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_fp32_plan_routes(cuda_device):
+    """`_plan` by dtype and channel count: fp32 at multiples of 16 runs the
+    3xTF32 route, fp32 Ci = 3 the stem kernel, other counts the CUDA-core
+    kernel; weights not packed for the tensor cores are refused there."""
+    from fasterseg_tpu_torch.kernels.conv import _plan
+    # (H, W, ci1, ci2, co, stride, is_bf16, ck, bn, top, bottom)
+    assert _plan((256, 512, 64, 0, 64, 1, 0, 32, 64, 0, 0))[0] == 3
+    assert _plan((128, 256, 64, 32, 64, 1, 0, 32, 64, 1, 1))[0] == 3
+    assert _plan((32, 64, 48, 0, 16, 2, 0, 16, 32, 0, 0))[0] == 3
+    # fp32 never splits K (no scratch), where bf16 does on the same map
+    assert _plan((16, 32, 256, 0, 256, 1, 0, 32, 64, 0, 0)) == (3, 0, 0)
+    assert _plan((16, 32, 256, 0, 256, 1, 1, 64, 64, 0, 0))[1] > 0
+    for co in (32, 48, 64):
+        assert _plan((1024, 2048, 3, 0, co, 2, 0, 0, 0, 0, 0))[0] == 1
+    assert _plan((8, 24, 20, 0, 40, 1, 0, 0, 0, 0, 0))[0] == 0
+    assert _plan((256, 512, 64, 0, 64, 1, 1, 64, 64, 0, 0))[0] == 2
+    with pytest.raises(RuntimeError):
+        _plan((256, 512, 64, 0, 64, 1, 0, 0, 0, 0, 0))
+
+
+# (H, W, ci, ci2, co, stride, block starts): blocks whose heights are not
+# multiples of a tile's 4 or 8 rows
+FP32_BLOCKS = [(70, 96, 64, 0, 64, 1, (27, 45)),
+               (70, 96, 64, 32, 64, 1, (13, 50)),
+               (70, 96, 192, 0, 192, 1, (27, 45)),
+               (70, 96, 32, 0, 64, 2, (26, 46)),
+               (70, 130, 3, 0, 32, 2, (26, 46))]
+
+
+@pytest.mark.parametrize("H,W,ci,ci2,co,stride,starts", FP32_BLOCKS)
+def test_fp32_block_equals_whole_map_bit_for_bit(cuda_device, gen, H, W, ci,
+                                                 ci2, co, stride, starts):
+    """A block of a map with its halo rows gives exactly the whole map's
+    output rows in fp32 (each output's sum in an order fixed by the
+    channels alone), and two launches give the same bits."""
+    x, w, s, b = _conv_args(gen, H, W, ci + ci2, co, cuda_device)
+    whole, _ = _fp32_conv(x, w, s, b, stride, ci)
+    again, _ = _fp32_conv(x, w, s, b, stride, ci)
+    assert torch.equal(again, whole)
+    edges = (0, *starts, H)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        top, bottom = int(lo > 0), int(hi < H)
+        got, _ = _fp32_conv(x[:, lo - top:hi + bottom].clone(), w, s, b,
+                            stride, ci, (top, bottom))
+        rows = slice(lo // stride, lo // stride + got.shape[1])
+        assert got.shape[1] == (hi - lo - 1) // stride + 1
+        assert torch.equal(got, whole[:, rows]), (lo, hi)
 
 
 def test_upsample_kernel_matches_plain(cuda_device, gen):
@@ -633,8 +729,9 @@ def test_measured_provider_keys_on_card(cuda_device, key):
     init_random_(op.module, 0)
     x = torch.randn(op.shape, generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        got = serving_route(op, "cuda")(x.to(cuda_device)).cpu()
-        want = serving_route(op, "cpu")(x)
+        got = serving_route(op, "cuda", torch.float32)(
+            x.to(cuda_device)).cpu()
+        want = serving_route(op, "cpu", torch.float32)(x)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
@@ -835,7 +932,8 @@ def test_round4_student_conv_shapes_through_the_kernels(cuda_device, gen,
         xs = x.to(dtype)
         if c2:
             a, c = xs[..., :c1].contiguous(), xs[..., c1:].contiguous()
-            wk = split_weights(w, (c1, c2)) if dtype == torch.bfloat16 else w
+            wk = (split_weights(w, input_parts(c1, c2))
+                  if dtype == torch.bfloat16 else w)
             got = conv3x3_bn_relu(a, wk, s, b, stride=stride, relu=relu,
                                   x2=c)
         else:

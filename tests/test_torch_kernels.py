@@ -18,8 +18,9 @@ from fasterseg_tpu.pallas.fused import upsample8_argmax as j_upsample8_argmax
 from fasterseg_tpu.pallas.fused import upsample8_argmax_xla
 from fasterseg_tpu_torch import kernels
 from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
-                                         conv3x3_bn_relu_plain,
-                                         split_weights, unpack_weights,
+                                         conv3x3_bn_relu_plain, input_parts,
+                                         round_tf32, split_weights,
+                                         unpack_weights,
                                          upsample8_argmax,
                                          upsample8_argmax_plain)
 from fasterseg_tpu_torch.kernels import fused
@@ -229,6 +230,53 @@ def test_split_weights_layout_is_the_swizzled_operand(rng):
                 assert slab[off // 2] == hi[1, 2, k, n], (ci, n, k)
 
 
+# the fp32 route's packing: chunks of 32 and of 16 fp32 channels (128 and 64
+# bytes a pixel), parts that are not whole chunks (48, 16), padded and
+# several output blocks
+@pytest.mark.parametrize("ci_parts,co", [
+    ((64,), 64), ((32,), 32), ((48,), 19), ((16,), 48), ((64, 32), 64),
+    ((128, 64), 96), ((96, 96), 192), ((3,), 32)])
+def test_split_weights_fp32_round_trip(rng, ci_parts, co):
+    w = torch.from_numpy(rng.standard_normal(
+        (3, 3, sum(ci_parts), co)).astype(np.float32))
+    cw = split_weights(w, ci_parts if len(ci_parts) > 1 else None,
+                       torch.float32)
+    assert cw.packed.dtype == torch.float32 and cw.dtype == torch.float32
+    assert cw.ck == (32 if all(c % 32 == 0 for c in ci_parts) else 16)
+    assert cw.bn == (32 if co <= 32 else 64)
+    chunks = sum(-(-c // cw.ck) for c in ci_parts)
+    assert tuple(cw.packed.shape) == (-(-co // cw.bn), chunks, 9, 2, cw.bn,
+                                      cw.ck)
+    hi, lo = unpack_weights(cw)
+    assert torch.equal(hi, round_tf32(w))
+    assert torch.equal(lo, round_tf32(w - hi))
+    # both halves are TF32 values (the low 13 bits zero), and hi + lo keeps
+    # w to 2^-21 relative (two 11-bit significands)
+    for half in (hi, lo):
+        assert not (half.view(torch.int32) & 0x1FFF).any()
+    assert ((hi + lo - w).abs() <= w.abs() * 2.0 ** -21).all()
+    assert torch.equal(cw.w, w)
+
+
+def test_split_weights_fp32_layout_is_the_swizzled_operand(rng):
+    """fp32 packing: element (n, k) of a (tap, chunk) slab lies at byte
+    offset n * ck * 4 + k * 4 with the 128-byte (ck = 32) or 64-byte
+    (ck = 16) swizzle, address bits [4, 7) ^= bits [7, 10)."""
+    for ci, mask in ((64, 7), (16, 3)):
+        w = torch.from_numpy(rng.standard_normal((3, 3, ci, 64))
+                             .astype(np.float32))
+        cw = split_weights(w, dtype=torch.float32)
+        ck = cw.ck
+        hi = round_tf32(w)
+        for chunk in range(ci // ck):
+            slab = cw.packed[0, chunk, 5, 0].reshape(-1)  # tap (1, 2), hi
+            for n in (0, 1, 5, 9, 63):
+                for k in (0, 3, 4, 7, ck - 1):
+                    off = n * ck * 4 + k * 4
+                    off ^= ((off >> 7) & mask) << 4
+                    assert slab[off // 4] == hi[1, 2, chunk * ck + k, n]
+
+
 def test_split_weights_rejects_bad_input(rng):
     w = torch.zeros((3, 3, 8, 4))
     with pytest.raises(ValueError):
@@ -237,6 +285,8 @@ def test_split_weights_rejects_bad_input(rng):
         split_weights(w.bfloat16())
     with pytest.raises(ValueError):
         split_weights(w[0])
+    with pytest.raises(ValueError):
+        split_weights(w, dtype=torch.float16)
 
 
 @pytest.mark.parametrize("c1,c2,co,dtype", [
@@ -250,8 +300,31 @@ def test_conv_two_inputs_plain_equals_concat(rng, c1, c2, co, dtype):
     assert torch.equal(conv3x3_bn_relu_plain(a, w, s, b, x2=c), want)
     # the wrapper on CPU tensors, with plain and with prepared weights
     assert torch.equal(conv3x3_bn_relu(a, w, s, b, x2=c), want)
-    assert torch.equal(conv3x3_bn_relu(a, split_weights(w, (c1, c2)), s, b,
-                                       x2=c), want)
+    assert torch.equal(conv3x3_bn_relu(
+        a, split_weights(w, input_parts(c1, c2), dtype), s, b, x2=c), want)
+
+
+def test_input_parts_read_in_place_only_at_multiples_of_16():
+    assert input_parts(64) == (64,)
+    assert input_parts(64, 32) == (64, 32)
+    assert input_parts(24, 8) == (32,)
+    assert input_parts(16, 20) == (36,)
+
+
+@pytest.mark.parametrize("packed_for", ["bf16", "one input", "two inputs"])
+def test_conv_rejects_weights_packed_for_other_inputs(rng, packed_for):
+    """Weights packed for another dtype or other inputs raise, on the CPU
+    as on the card, rather than being packed again on every call."""
+    x, w, s, b = _t(*_conv_inputs(rng, 8, 12, 96, 16))
+    a, c = x[..., :64].contiguous(), x[..., 64:].contiguous()
+    cw = {"bf16": split_weights(w, dtype=torch.bfloat16),
+          "one input": split_weights(w, dtype=torch.float32),
+          "two inputs": split_weights(w, (64, 32), torch.float32)}[packed_for]
+    with pytest.raises(ValueError, match="packed for"):
+        if packed_for == "one input":
+            conv3x3_bn_relu(a, cw, s, b, x2=c)
+        else:
+            conv3x3_bn_relu(x, cw, s, b)
 
 
 @pytest.mark.parametrize("c1,c2,co", [(24, 8, 16), (64, 32, 64)])
@@ -322,3 +395,4 @@ def test_cpu_wrappers_launch_nothing(rng):
     conv3x3_bn_relu(x, w, s, b, stride=2)
     upsample8_argmax(torch.zeros((1, 2, 2, 3)))
     assert set(kernels.launch_counts().values()) == {0}
+    assert set(kernels.route_launch_counts().values()) == {0}

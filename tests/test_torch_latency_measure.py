@@ -120,7 +120,7 @@ def test_provider_route_matches_jax_module(key, monkeypatch):
             _port_state(op, variables), strict=False)
         assert not unexpected
         assert all(k.endswith("num_batches_tracked") for k in missing)
-        route = serving_route(op, "cpu")
+        route = serving_route(op, "cpu", torch.float32)
     want = np.asarray(module.apply(
         jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), variables),
         jnp.asarray(x), train=False))
