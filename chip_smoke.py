@@ -16,6 +16,7 @@ report) on the study's scenes.
     python3 chip_smoke.py --study-only [--miou-epochs N]
     python3 chip_smoke.py --distributed-only
     python3 chip_smoke.py --self-search-only
+    python3 chip_smoke.py --bench-only
 
 The second form builds the kernels and prints only the class-map agreement
 readings of student and teacher for each seed, with the serving phases'
@@ -26,7 +27,8 @@ calibration there as latency_swept_h100_lut*.json); the fifth builds them
 and runs only the miou, bf16_trained and int8 phases (`--miou-epochs 40`:
 the 40 + 40 epoch study of MIOU.md); the sixth builds them, renders the
 scenes and runs only the distributed phase; the seventh builds them, renders
-the study's scenes and runs only the self_search phase.
+the study's scenes and runs only the self_search phase; the eighth builds
+them and runs only the bench phase.
 
 Run from the root of a checkout. Phases, one JSON line each:
 
@@ -51,6 +53,13 @@ Run from the root of a checkout. Phases, one JSON line each:
                  ms/frame, launch by launch and replayed as a CUDA graph;
                  the fp32 runner's .logits replayed as a CUDA graph
   serve_teacher  one teacher .classmap with the same agreement checks
+  bench          `python -m fasterseg_tpu_torch.cli.bench` as a user runs it,
+                 a subprocess at its default size (the student with the JAX
+                 bench's draw, 1024x2048, bf16 .logits and .classmap and the
+                 int8 .logits by graph slope): exit 0, a last line with
+                 bench.py's keys, serving_path "fast_body", finite positive
+                 FPS, every kernel launched, its card line this script's;
+                 its class-map slope beside serve_student's graph replay
   eval_student   fasterseg_tpu_torch.eval.Evaluator over four 1024x2048
                  ProcCity scenes (data/procgen.py, seeded) with the student's
                  kernel path (bf16 K16, fp32 K32) and plain path (P32, TF32
@@ -308,25 +317,6 @@ def host_us(fn, reps: int = 200) -> float:
     return dt / reps * 1e6
 
 
-def call_ms(fn, reps: int = 7):
-    """Per-call time with the host in the loop (serving as a caller sees
-    it): CUDA events around each call after 2 warm-up calls."""
-    import torch
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return {"median": statistics.median(times), "min": min(times),
-            "max": max(times), "reps": reps}
-
-
 def device_breakdown(fn, frames: int = 5, top: int = 12,
                      warmup: bool = True) -> dict:
     """Where one call of `fn` spends device time: torch.profiler (CUPTI)
@@ -385,6 +375,52 @@ def bound(nbytes: float, ops: float, engine: str) -> dict:
 
 
 # ---------------------------------------------------------------- phases
+
+
+# bench.py's keys (bench.py:94-105, 121-123), which cli/bench.py prints too
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_pct",
+              "spread_kind", "classmap_fps", "classmap_spread_pct",
+              "classmap_spread_kind", "serving_path", "int8_fps",
+              "int8_spread_pct", "int8_serving_path")
+BENCH_TIMEOUT_S = 300
+
+
+def phase_bench(serve_graph_classmap_ms=None) -> dict:
+    """The port's bench as a user runs it: `python -m
+    fasterseg_tpu_torch.cli.bench` in a subprocess, at its defaults. Its
+    last line is read and held to the bars; with `serve_graph_classmap_ms`,
+    its class-map slope is set beside serve_student's graph replay (two
+    harnesses, two draws of weights: a reading, not a bar)."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "fasterseg_tpu_torch.cli.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"bench: exit {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    check(not missing, f"bench: keys missing: {missing}")
+    check(line["serving_path"] == "fast_body",
+          f"bench: serving_path {line['serving_path']}")
+    for k in ("value", "classmap_fps", "int8_fps"):
+        check(math.isfinite(line[k]) and line[k] > 0,
+              f"bench: {k} {line[k]}")
+    for k, n in line["launches"].items():
+        check(n > 0, f"bench: kernel {k} was not launched")
+    card = gpu_line()
+    check(line["gpu"] == card, f"bench: gpu {line['gpu']!r}, not {card!r}")
+    row = {"phase": "bench", "seconds": seconds, "line": line}
+    if serve_graph_classmap_ms is not None:
+        row["classmap_ms_bench_slope"] = 1e3 / line["classmap_fps"]
+        row["classmap_ms_serve_graph_replay"] = serve_graph_classmap_ms
+        row["bench_over_serve_replay"] = (
+            row["classmap_ms_bench_slope"] / serve_graph_classmap_ms - 1.0)
+    emit(row)
+    return row
 
 
 def phase_build() -> dict:
@@ -845,6 +881,7 @@ def _agreement(name: str, plan, net, x, cm) -> dict:
 def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
     import torch
     from fasterseg_tpu_torch import kernels
+    from fasterseg_tpu_torch.latency.measure import call_ms
     from fasterseg_tpu_torch.models import DerivedNet, InferenceRunner
     from fasterseg_tpu_torch.utils import init_random_
     plan = plan_fn()
@@ -947,6 +984,7 @@ def phase_eval(seed: int) -> dict:
     from fasterseg_tpu_torch.data.preprocess import _resize, eval_preprocess
     from fasterseg_tpu_torch.eval import (Evaluator, confusion_hist,
                                           probabilities)
+    from fasterseg_tpu_torch.latency.measure import call_ms
     from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
                                             student_plan)
     from fasterseg_tpu_torch.utils import init_random_
@@ -1209,6 +1247,7 @@ def _count_copies_probe(labels) -> dict:
     several numbers of private copies of the bins; every count equal."""
     import torch
     from fasterseg_tpu_torch.eval import metrics
+    from fasterseg_tpu_torch.latency.measure import call_ms
     idx = (labels.long() + 1).clamp(0, 19).reshape(-1)
     want = metrics._bincount(idx, 20, 1)
     out = {"values": idx.numel(), "chosen": metrics.COUNT_COPIES}
@@ -3277,6 +3316,8 @@ def main() -> int:
     ap.add_argument("--self-search-only", action="store_true",
                     help="only build, render the scenes and run the "
                          "self_search phase")
+    ap.add_argument("--bench-only", action="store_true",
+                    help="only build and run the bench phase")
     ap.add_argument("--detail-dir", default=None, metavar="DIR",
                     help="write the latency phase's long readings (every "
                          "conv shape, the swept table, the CLIs' output) "
@@ -3326,6 +3367,10 @@ def main() -> int:
         phase_self_search(args.seed, train, val,
                           [scenes[i] for i in range(2)])
         return 0
+    if args.bench_only:
+        phase_build()
+        phase_bench()
+        return 0
     if args.study_only:
         phase_build()
         phase_study(args.seed, args.miou_epochs)
@@ -3343,6 +3388,7 @@ def main() -> int:
     phase_reference()
     student = _serve("student", student_plan, args.seed, timed=True)
     _serve("teacher", teacher_plan, args.seed, timed=False)
+    bench = phase_bench(student["graph_classmap_ms"])
     ev_row, eval_scenes = phase_eval(args.seed)
     pool, render_s = _train_pool(args.seed)
     emit({"phase": "train_pool", "scenes": TRAIN_POOL, "hw": list(HW),
@@ -3376,6 +3422,7 @@ def main() -> int:
             "source": f"fasterseg_tpu_torch/csrc/{sources[name]}.cu",
             "replaces": replaces[name],
             "launches": student["launches"][name],
+            "launches_bench": bench["line"]["launches"][name],
             "launches_search_decoded_student":
                 search["decoded_student"]["launches"][name],
             "launches_latency_sweep": latency["sweep"]["launches"][name],

@@ -5,7 +5,8 @@ counterpart of the reference's TensorRT timers (tools/utils/darts_utils.py:
 96-223) and measure-on-miss (search/operations.py:115-123).
 
 * `time_fn` times calls issued one after another by the host, as a caller
-  sees them (`time_jitted` / `measure_apply_ms`).
+  sees them (`time_jitted` / `measure_apply_ms`); `call_ms` times single
+  calls so, and gives their median, min and max.
 * `graph_slope_ms` times the device alone: CUDA graphs of n1 and n2 calls,
   replayed under CUDA events; the slope per call removes the replay's fixed
   cost (`slope_time_ms` / `chained_slope_ms`).
@@ -79,6 +80,31 @@ def time_fn(fn: Callable[[], object], warmup: int = 10,
         per_call = elapsed_ms / done
         batch = max(10, min(int((min_seconds * 1e3 - elapsed_ms) / per_call)
                             + 1, max_iters - done))
+
+
+def call_ms(fn: Callable[[], object], reps: int = 7,
+            device: Device = "cuda") -> dict:
+    """Milliseconds of single calls of `fn` with the host in the loop
+    (serving as a caller sees it): after 2 warm-up calls, CUDA events
+    around each of `reps` calls (a wall clock on the CPU). The per-call
+    counterpart of `time_fn`: {"median", "min", "max", "reps"}."""
+    device = resolve_device(device)
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            times.append(_wall_ms(fn, 1))
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times), "reps": reps}
 
 
 def _graph_of(fn: Callable[[], object], n: int, pool=None):

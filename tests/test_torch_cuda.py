@@ -696,6 +696,35 @@ def _graph_ms(fn, reps=20):
     return float(np.median(times))
 
 
+def test_bench_on_card_launches_every_kernel(cuda_device):
+    """cli/bench.py at 256x512: every kernel launched, finite positive FPS
+    and finite spreads for bf16 and int8, the card's line."""
+    from fasterseg_tpu_torch.cli import bench
+    from fasterseg_tpu_torch.cli.calibrate_latency import card_line
+    line = bench.run_bench((256, 512), cuda_device)
+    assert all(n > 0 for n in line["launches"].values())
+    for k in ("value", "classmap_fps", "int8_fps"):
+        assert np.isfinite(line[k]) and line[k] > 0, k
+    for k in ("spread_pct", "classmap_spread_pct", "int8_spread_pct"):
+        assert np.isfinite(line[k]), k
+    assert line["serving_path"] == line["int8_serving_path"] == "fast_body"
+    assert line["gpu"] == card_line()
+
+
+def test_bench_plain_body_on_card_launches_fewer_convs(cuda_device):
+    """`--no-fast-body`: the kernel stem and the plain body, so fewer conv
+    launches than the fast body's and the same upsample."""
+    from fasterseg_tpu_torch.cli import bench
+    fast = bench.run_bench((256, 512), cuda_device, int8=False)
+    plain = bench.run_bench((256, 512), cuda_device, int8=False,
+                            fast_body=False)
+    assert plain["serving_path"] == "fast_stem_plain_body"
+    conv = lambda c: c["conv3x3_bn_relu_s1"] + c["conv3x3_bn_relu_s2"]
+    assert 0 < conv(plain["launches"]) < conv(fast["launches"])
+    assert (plain["launches"]["upsample8_argmax"]
+            == fast["launches"]["upsample8_argmax"] == 1)
+
+
 def test_graph_slope_ms_floored_and_near_graph_ms(cuda_device, gen):
     from fasterseg_tpu_torch.latency.measure import graph_slope_ms
     x, w, scale, bias = _conv_args(gen, 256, 512, 64, 64, cuda_device)
