@@ -1,0 +1,2 @@
+"""Device busy ms an image (union of its operations), traced sub-window."""
+from gpubench.readers import device_ms as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""Forward FLOPs of the window's frames over its seconds, share of 989 TFLOP/s."""
+from gpubench.readers import mfu_pct as read  # noqa: F401
