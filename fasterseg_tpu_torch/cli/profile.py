@@ -5,7 +5,9 @@ thop at build and its TensorRT timer loops, train_search.py:67-68 /
 darts_utils.py:96-223). Prints one JSON line: static GFLOPs and parameters
 (utils/flops.py) and the graph-slope-timed split of the serving path
 (utils/profiling.py `serving_segments`), with random weights (seed 0); with
-`--trace DIR` it also writes a Chrome trace of one forward.
+`--trace DIR` it also writes a Chrome trace of one forward, which carries the
+program's spans (`infer.logits`, `infer.stem`, `infer.cells`, ...) beside
+the host calls and the card's kernels.
 
   python -m fasterseg_tpu_torch.cli.profile                  # shipped student
   python -m fasterseg_tpu_torch.cli.profile --teacher --trace /tmp/trace
@@ -27,7 +29,8 @@ def main(argv=None):
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--trace", default=None, metavar="DIR",
-                   help="also write a torch.profiler trace of one forward")
+                   help="also write a torch.profiler trace of one forward "
+                        "(host calls, kernels and the program's spans)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu times the plain "
                         "versions by wall clock, for tests)")

@@ -31,13 +31,17 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from ..utils import profiling
 from .preprocess import TrainPre
 
 
 class TrainLoader:
     """Infinite iterator of (images NHWC float32, labels NHW int32):
     `batch_size` is the global batch; with `shard=(rank, world)` the loader
-    yields this rank's rows of it."""
+    yields this rank's rows of it. Spans (utils/profiling.py):
+    `loader.wait`, the consumer blocked on the queue; `loader.make_batch`,
+    a batch made on the prefetch thread (inside `profiling.recording()`
+    only: the profiler does not follow that thread)."""
 
     def __init__(self, dataset, preprocess: TrainPre, batch_size: int,
                  seed: int = 0, shuffle: bool = True, prefetch: int = 2,
@@ -117,7 +121,8 @@ class TrainLoader:
         epoch, step = self._start_epoch, 0
         steps_per_epoch = len(self)
         while not stop.is_set():
-            batch = self.make_batch(epoch, step)
+            with profiling.span("loader.make_batch"):
+                batch = self.make_batch(epoch, step)
             while not stop.is_set():
                 try:
                     out.put(batch, timeout=0.5)
@@ -136,7 +141,9 @@ class TrainLoader:
                 daemon=True)
             self._thread.start()
         while True:
-            yield self._queue.get()
+            with profiling.span("loader.wait"):
+                batch = self._queue.get()
+            yield batch
 
     def close(self):
         """Stop the prefetch thread and wait for it, then for the slot

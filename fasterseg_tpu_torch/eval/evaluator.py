@@ -56,6 +56,7 @@ from ..models.infer import resolve_device
 from ..ops.resize import (in_float64, resize_bilinear_halfpixel,
                           resize_bilinear_halfpixel_rows)
 from ..parallel.spatial import Block, Exchange, partition
+from ..utils import profiling
 from .metrics import compute_score, hist_stats
 
 
@@ -130,11 +131,17 @@ class Evaluator:
     def _probs(self, x: torch.Tensor, part=None) -> torch.Tensor:
         """Normalized images (or this rank's block of them, `part`) ->
         summed probabilities, with the flip TTA (val_func_process,
-        evaluator.py:297-318)."""
-        p = probabilities(self._forward(x, part))
+        evaluator.py:297-318). Spans: `eval.forward`, `eval.score`."""
+        with profiling.span("eval.forward"):
+            logits = self._forward(x, part)
+        with profiling.span("eval.score"):
+            p = probabilities(logits)
+        del logits
         if self.eval_flip:
-            lf = self._forward(torch.flip(x, [2]), part)
-            p = p + torch.flip(probabilities(lf), [2])
+            with profiling.span("eval.forward"):
+                lf = self._forward(torch.flip(x, [2]), part)
+            with profiling.span("eval.score"):
+                p = p + torch.flip(probabilities(lf), [2])
         return p
 
     def _partition(self, height: int):
@@ -150,15 +157,15 @@ class Evaluator:
         lo, hi = self._partition(a.shape[1]).block(self.mesh.rank)
         return a[:, lo:hi]
 
-    def _fused_eval(self, images_u8: torch.Tensor, labels: torch.Tensor,
-                    part=None):
-        """Single scale: uint8 images (or this rank's block of them) and
-        their labels on the device -> (hist, labeled, correct), all computed
-        there."""
-        x = images_u8.float() / 255.0
-        x = (x - self._mean) / self._std
-        pred = torch.argmax(self._probs(x, part), dim=-1).int()
-        return hist_stats(pred, labels, self.num_classes, self.ignore_label)
+    def _fused_eval(self, x: torch.Tensor, labels: torch.Tensor, part=None):
+        """Single scale: normalised images (or this rank's block of them)
+        and their labels on the device -> (hist, labeled, correct), all
+        computed there."""
+        p = self._probs(x, part)
+        with profiling.span("eval.score"):
+            pred = torch.argmax(p, dim=-1).int()
+            return hist_stats(pred, labels, self.num_classes,
+                              self.ignore_label)
 
     # ---- host protocol ----
 
@@ -173,23 +180,29 @@ class Evaluator:
         acc = None
         for scale in self.eval_scales:
             sh, sw = int(H * scale), int(W * scale)
-            batch = np.stack([
-                eval_preprocess(
-                    _resize(im, (sw, sh), nearest=False) if scale != 1.0 else im,
-                    self.image_mean, self.image_std)
-                for im in imgs])
+            with profiling.span("eval.upload"):
+                batch = self._rows(np.stack([
+                    eval_preprocess(
+                        _resize(im, (sw, sh), nearest=False)
+                        if scale != 1.0 else im,
+                        self.image_mean, self.image_std)
+                    for im in imgs]))
+                with profiling.span("eval.copy"):
+                    x = torch.from_numpy(batch).to(self.device)
+                profiling.count("eval.upload_bytes", batch.nbytes)
             part = self._partition(sh)
-            p = self._probs(torch.from_numpy(self._rows(batch)).to(
-                self.device), part)
-            if (sh, sw) != (H, W):
-                # in float64: a block's rows get the whole map's bits
-                p = (in_float64(resize_bilinear_halfpixel, p, (H, W))
-                     if part is None else
-                     in_float64(resize_bilinear_halfpixel_rows,
-                                Block(p, part, self.exchange), (H, W),
-                                full).t)
-            acc = p if acc is None else acc + p
-        return torch.argmax(acc, dim=-1).int()
+            p = self._probs(x, part)
+            with profiling.span("eval.score"):
+                if (sh, sw) != (H, W):
+                    # in float64: a block's rows get the whole map's bits
+                    p = (in_float64(resize_bilinear_halfpixel, p, (H, W))
+                         if part is None else
+                         in_float64(resize_bilinear_halfpixel_rows,
+                                    Block(p, part, self.exchange), (H, W),
+                                    full).t)
+                acc = p if acc is None else acc + p
+        with profiling.span("eval.score"):
+            return torch.argmax(acc, dim=-1).int()
 
     @torch.inference_mode()
     def run(self, max_items: Optional[int] = None) -> EvalResult:
@@ -197,7 +210,20 @@ class Evaluator:
         the tail batch is padded with repeats whose labels are all
         `ignore_label`, so they count nothing. With a mesh, this rank's
         share of the items, the counts summed over ranks; spatial, every
-        item, this rank's rows of each."""
+        item, this rank's rows of each.
+
+        Spans (utils/profiling.py): the pass is the unit `eval.run`; each
+        batch's `eval.upload` (the samples stacked, the labels cast, the
+        images normalised on the device; counter `eval.upload_bytes`) with
+        its child `eval.copy` (both copies to the device: a pageable copy
+        also waits there for the device's queued work), `eval.forward` and
+        `eval.score`
+        (probabilities, argmax, counts); `eval.readback` (the counts summed
+        over ranks and read to the host, the score)."""
+        with profiling.span("eval.run"):
+            return self._run(max_items)
+
+    def _run(self, max_items: Optional[int]) -> EvalResult:
         n_total = min(len(self.dataset), max_items or len(self.dataset))
         batch = self.batch_size
         rank, world = ((0, 1) if self.mesh is None or self.spatial
@@ -210,33 +236,46 @@ class Evaluator:
         # uint8 images on; multi-scale resizes its inputs on the host
         fused = self.eval_scales == (1.0,)
         for i in range(rank * batch, n_total, batch * world):
-            idxs = list(range(i, min(i + batch, n_total)))
-            n_real = len(idxs)
-            idxs += [idxs[-1]] * (batch - n_real)
-            samples = [self.dataset[k] for k in idxs]
-            imgs = np.stack([s["data"] for s in samples])
-            labels = np.stack([s["label"] for s in samples]).astype(np.int32)
-            labels[n_real:] = self.ignore_label
-            lb = torch.from_numpy(self._rows(labels)).to(self.device)
+            with profiling.span("eval.upload"):
+                idxs = list(range(i, min(i + batch, n_total)))
+                n_real = len(idxs)
+                idxs += [idxs[-1]] * (batch - n_real)
+                samples = [self.dataset[k] for k in idxs]
+                imgs = np.stack([s["data"] for s in samples])
+                labels = np.stack([s["label"] for s in samples]).astype(
+                    np.int32)
+                labels[n_real:] = self.ignore_label
+                labels = self._rows(labels)
+                if fused:
+                    rows = self._rows(imgs.astype(np.uint8))
+                with profiling.span("eval.copy"):
+                    lb = torch.from_numpy(labels).to(self.device)
+                    if fused:
+                        xb = torch.from_numpy(rows).to(self.device)
+                profiling.count("eval.upload_bytes", labels.nbytes)
+                if fused:
+                    profiling.count("eval.upload_bytes", rows.nbytes)
+                    x = (xb.float() / 255.0 - self._mean) / self._std
             if fused:
-                xb = torch.from_numpy(self._rows(imgs.astype(np.uint8))).to(
-                    self.device)
-                h, l, c = self._fused_eval(xb, lb,
+                h, l, c = self._fused_eval(x, lb,
                                            self._partition(imgs.shape[1]))
             else:
-                h, l, c = hist_stats(self._predict_whole(imgs), lb,
-                                     self.num_classes, self.ignore_label)
+                wh = self._predict_whole(imgs)
+                with profiling.span("eval.score"):
+                    h, l, c = hist_stats(wh, lb, self.num_classes,
+                                         self.ignore_label)
             hist += h
             correct += c
             labeled += l
-        if self.mesh is not None:
-            counts = self.mesh.all_reduce_(
-                torch.cat([hist.reshape(-1), correct[None], labeled[None]]))
-            hist = counts[:n * n].reshape(n, n)
-            correct, labeled = counts[n * n], counts[n * n + 1]
-        hist = hist.cpu().numpy()
-        correct, labeled = int(correct), int(labeled)
-        iou, mean_iu, _, _ = compute_score(hist, correct, labeled)
+        with profiling.span("eval.readback"):
+            if self.mesh is not None:
+                counts = self.mesh.all_reduce_(torch.cat(
+                    [hist.reshape(-1), correct[None], labeled[None]]))
+                hist = counts[:n * n].reshape(n, n)
+                correct, labeled = counts[n * n], counts[n * n + 1]
+            hist = hist.cpu().numpy()
+            correct, labeled = int(correct), int(labeled)
+            iou, mean_iu, _, _ = compute_score(hist, correct, labeled)
         return EvalResult(mean_iu=mean_iu, iou_per_class=np.asarray(iou),
                           pixel_acc=correct / max(labeled, 1), hist=hist)
 

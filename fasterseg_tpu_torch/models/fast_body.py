@@ -44,6 +44,7 @@ from ..ops.resize import (downsample_half, downsample_half_rows, in_float64,
                           resize_bilinear, resize_bilinear_rows)
 from ..parallel import spatial
 from ..parallel.spatial import Block
+from ..utils import profiling
 from .derived import DerivedNet, cell_key
 
 # Weights keep fp32 accuracy whatever the activation dtype: they are a few
@@ -243,41 +244,46 @@ def fast_body(plan: NetworkPlan, fw: Dict, stem):
     """Stem features (1, H8, W8, C) NHWC -> 1/8-resolution class logits
     (1, H8, W8, classes); with a Block of the stem features, the Block of
     the logits. Mirrors DerivedNet.forward cell for cell; reference walk:
-    model_seg.py:293-335."""
+    model_seg.py:293-335. Spans: `infer.cells`, `infer.aggregate`,
+    `infer.head`."""
     B = plan.num_branch
     outputs = [stem] * B
     by_scale = {8: [stem] * B, 16: [stem] * B, 32: [stem] * B}
     specs = {(c.layer, c.branch): c for c in plan.cells}
-    for layer, groups in enumerate(plan.branch_groups):
-        for group in groups:
-            spec = specs[(layer, group[0])]
-            stride = 2 if spec.down else 1
-            out = _run_cell(spec.op, outputs[group[0]],
-                            fw["cells"][cell_key(layer, group[0])], stride)
-            for b in group:
-                outputs[b] = out
-                by_scale[spec.scale * stride][b] = out
+    with profiling.span("infer.cells"):
+        for layer, groups in enumerate(plan.branch_groups):
+            for group in groups:
+                spec = specs[(layer, group[0])]
+                stride = 2 if spec.down else 1
+                out = _run_cell(spec.op, outputs[group[0]],
+                                fw["cells"][cell_key(layer, group[0])], stride)
+                for b in group:
+                    outputs[b] = out
+                    by_scale[spec.scale * stride][b] = out
 
     # BiSeNet aggregation (model_seg.py:298-335)
-    pred8 = []
-    for b, last in enumerate(plan.lasts):
-        o8 = by_scale[8][b]
-        if last == 2:
-            o16 = by_scale[16][b]
-            out = _local(_conv1x1, by_scale[32][b], fw["arms32"][0])
-            out = _refine_3x3(_resize_to(out, o16), o16, fw["refines32"][0])
-            out = _local(_conv1x1, out, fw["arms32"][1])
-            pred8.append(_refine_3x3(_resize_to(out, o8), o8,
-                                     fw["refines32"][1]))
-        elif last == 1:
-            out = _local(_conv1x1, by_scale[16][b], fw["arms16"])
-            pred8.append(_refine_3x3(_resize_to(out, o8), o8,
-                                     fw["refines16"]))
-        else:
-            pred8.append(o8)
+    with profiling.span("infer.aggregate"):
+        pred8 = []
+        for b, last in enumerate(plan.lasts):
+            o8 = by_scale[8][b]
+            if last == 2:
+                o16 = by_scale[16][b]
+                out = _local(_conv1x1, by_scale[32][b], fw["arms32"][0])
+                out = _refine_3x3(_resize_to(out, o16), o16,
+                                  fw["refines32"][0])
+                out = _local(_conv1x1, out, fw["arms32"][1])
+                pred8.append(_refine_3x3(_resize_to(out, o8), o8,
+                                         fw["refines32"][1]))
+            elif last == 1:
+                out = _local(_conv1x1, by_scale[16][b], fw["arms16"])
+                pred8.append(_refine_3x3(_resize_to(out, o8), o8,
+                                         fw["refines16"]))
+            else:
+                pred8.append(o8)
 
-    # FFM: 1x1 ConvBnRelu over the branch concat (seg_oprs.py:181-225)
-    y = _local(_conv1x1, _cat(pred8), fw["ffm"])
-    # Head: 3x3 ConvBnRelu -> biased 1x1 to classes (seg_oprs.py:228-274)
-    y = conv3x3(y, fw["head3"])
-    return _local(_conv1x1, y, fw["cls"], relu=False)
+    with profiling.span("infer.head"):
+        # FFM: 1x1 ConvBnRelu over the branch concat (seg_oprs.py:181-225)
+        y = _local(_conv1x1, _cat(pred8), fw["ffm"])
+        # Head: 3x3 ConvBnRelu -> biased 1x1 to classes (seg_oprs.py:228-274)
+        y = conv3x3(y, fw["head3"])
+        return _local(_conv1x1, y, fw["cls"], relu=False)

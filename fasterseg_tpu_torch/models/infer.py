@@ -23,6 +23,7 @@ from ..kernels.fused import upsample8_argmax, upsample8_argmax_plain
 from ..ops.conv import Conv
 from ..ops.resize import in_float64, scale_by, scale_by_rows
 from ..parallel.spatial import Block
+from ..utils import profiling
 from .derived import DerivedNet
 from .fast_body import Folded3x3, conv3x3, fast_body, fold_weights, row_multiple
 
@@ -64,6 +65,10 @@ class InferenceRunner:
     alone, plain throughout (its class map too), which makes it the
     reference the kernel path is held against. BN folding and weight
     casting happen here, once.
+
+    Each call is one unit span, `infer.classmap` or `infer.logits`, over the
+    stage spans `infer.stem`, fast_body's `infer.cells`, `infer.aggregate`
+    and `infer.head`, and `infer.upsample` (utils/profiling.py).
     """
 
     def __init__(self, plan: NetworkPlan, net: DerivedNet,
@@ -101,28 +106,35 @@ class InferenceRunner:
                 raise ValueError("a Block (an image split over H) runs the "
                                  "kernel path only")
             t = x.t.to(device=self.device, dtype=self.dtype).contiguous()
-            return fast_body(self.plan, self.folded,
-                             fast_stem(self.folded["stem"], x.like(t)))
+            with profiling.span("infer.stem"):
+                stem = fast_stem(self.folded["stem"], x.like(t))
+            return fast_body(self.plan, self.folded, stem)
         x = x.to(device=self.device, dtype=self.dtype).contiguous()
         if not self.fast_stem_enabled:
             return self.net(x, upsample=False)
-        stem = fast_stem(self.folded["stem"], x)
+        with profiling.span("infer.stem"):
+            stem = fast_stem(self.folded["stem"], x)
         if self.fast_body_enabled:
             return fast_body(self.plan, self.folded, stem)
         return self.net(x, stem_out=stem, upsample=False)
 
     @torch.inference_mode()
     def logits(self, x):
-        p8 = self.p8(x)
-        return in_float64(scale_by_rows if isinstance(p8, Block)
-                          else scale_by, p8, 8)
+        with profiling.span("infer.logits"):
+            p8 = self.p8(x)
+            with profiling.span("infer.upsample"):
+                return in_float64(scale_by_rows if isinstance(p8, Block)
+                                  else scale_by, p8, 8)
 
     @torch.inference_mode()
     def classmap(self, x: torch.Tensor) -> torch.Tensor:
-        out_hw = (x.shape[1], x.shape[2])
-        if not self.fast_stem_enabled:
-            return upsample8_argmax_plain(self.p8(x), out_hw)
-        return upsample8_argmax(self.p8(x), out_hw)
+        with profiling.span("infer.classmap"):
+            out_hw = (x.shape[1], x.shape[2])
+            p8 = self.p8(x)
+            with profiling.span("infer.upsample"):
+                if not self.fast_stem_enabled:
+                    return upsample8_argmax_plain(p8, out_hw)
+                return upsample8_argmax(p8, out_hw)
 
 
 def _to(tree, device):

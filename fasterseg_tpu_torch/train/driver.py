@@ -42,6 +42,7 @@ from ..eval.metrics import SegMetrics
 from ..models import DerivedNet, InferenceRunner
 from ..models.infer import resolve_device
 from ..parallel.mesh import replicate
+from ..utils import profiling
 from ..utils.checkpoint import PartialLoad, load, partial_load, save
 from ..utils.weights import init_jax_draw_
 from .loop import TrainState, make_optimizer, train_step
@@ -144,9 +145,10 @@ class TrainSession:
     def step(self, images: torch.Tensor, labels: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
         """One update on a batch (this rank's shard of it, with a mesh)
-        already on the session's device."""
-        return train_step(self.state, images, labels, self.teacher,
-                          mesh=self.mesh, **self.step_kwargs)
+        already on the session's device; the unit span `train.step`."""
+        with profiling.span("train.step"):
+            return train_step(self.state, images, labels, self.teacher,
+                              mesh=self.mesh, **self.step_kwargs)
 
     def load_weights(self, ckpt_path: str, arch_idx: Optional[int] = None
                      ) -> PartialLoad:

@@ -38,6 +38,7 @@ import torch
 
 from ..eval.metrics import batch_intersection_union
 from ..parallel.mesh import sync_batchnorm_
+from ..utils import profiling
 from .loss import kl_distillation, ohem_cross_entropy
 
 
@@ -104,34 +105,46 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
 
     Returns {loss, loss_kl, inter, union} as tensors on the device (no host
     read): the loss before the update, and the per-class intersection and
-    union of p8's class map with the labels (of the global batch)."""
+    union of p8's class map with the labels (of the global batch).
+
+    Spans (utils/profiling.py): `train.forward` (the model's forward, and
+    the teacher's), `train.loss` (OHEM x3, KL), `train.backward` and
+    `train.optimizer` (zero_grad first; the gradients' reduce, clip, the
+    learning rate and the update last)."""
     model, opt = state.model, state.optimizer
-    model.train()
-    sync_batchnorm_(model, mesh)
-    opt.zero_grad(set_to_none=True)
-    p8, p16, p32 = model(images)
+    with profiling.span("train.optimizer"):
+        opt.zero_grad(set_to_none=True)
+    with profiling.span("train.forward"):
+        model.train()
+        sync_batchnorm_(model, mesh)
+        p8, p16, p32 = model(images)
     ohem = lambda p: ohem_cross_entropy(p, labels, ignore_label, thresh,
                                         min_kept, mesh=mesh)
-    loss = ohem(p8)
-    for aux in (p16, p32):
-        if aux is not None:
-            loss = loss + aux_weight * ohem(aux)
-    loss_kl = torch.zeros((), dtype=loss.dtype, device=images.device)
+    with profiling.span("train.loss"):
+        loss = ohem(p8)
+        for aux in (p16, p32):
+            if aux is not None:
+                loss = loss + aux_weight * ohem(aux)
+        loss_kl = torch.zeros((), dtype=loss.dtype, device=images.device)
     if teacher is not None:
-        teacher.eval()
-        with torch.no_grad():
-            t8 = teacher(images)
-        loss_kl = kl_distillation(p8, t8, mesh=mesh)
-        loss = loss + loss_kl
-    loss.backward()
-    grads = [p.grad for g in opt.param_groups for p in g["params"]
-             if p.grad is not None]
-    if mesh is not None:
-        mesh.reduce_grads_(grads)
-    if grad_clip is not None:
-        clip_by_global_norm_(grads, grad_clip)
-    set_learning_rate(opt, state.step)
-    opt.step()
+        with profiling.span("train.forward"):
+            teacher.eval()
+            with torch.no_grad():
+                t8 = teacher(images)
+        with profiling.span("train.loss"):
+            loss_kl = kl_distillation(p8, t8, mesh=mesh)
+            loss = loss + loss_kl
+    with profiling.span("train.backward"):
+        loss.backward()
+    with profiling.span("train.optimizer"):
+        grads = [p.grad for g in opt.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if mesh is not None:
+            mesh.reduce_grads_(grads)
+        if grad_clip is not None:
+            clip_by_global_norm_(grads, grad_clip)
+        set_learning_rate(opt, state.step)
+        opt.step()
     state.step += 1
     inter, union = batch_intersection_union(p8.detach(), labels, num_classes)
     losses = torch.stack([loss.detach(), loss_kl.detach()])
