@@ -17,6 +17,7 @@ report) on the study's scenes.
     python3 chip_smoke.py --distributed-only
     python3 chip_smoke.py --self-search-only
     python3 chip_smoke.py --bench-only
+    python3 chip_smoke.py --kernels-only
 
 The second form builds the kernels and prints only the class-map agreement
 readings of student and teacher for each seed, with the serving phases'
@@ -28,7 +29,7 @@ and runs only the miou, bf16_trained and int8 phases (`--miou-epochs 40`:
 the 40 + 40 epoch study of MIOU.md); the sixth builds them, renders the
 scenes and runs only the distributed phase; the seventh builds them, renders
 the study's scenes and runs only the self_search phase; the eighth builds
-them and runs only the bench phase.
+them and runs only the bench phase; the ninth, only the kernels phase.
 
 Run from the root of a checkout. Phases, one JSON line each:
 
@@ -44,7 +45,11 @@ Run from the root of a checkout. Phases, one JSON line each:
                  by fp32 CUDA cores beside it); the conv's halo mode (a block of an image
                  split over H with its neighbours' rows) on each of its four
                  routes against the plain version with the same halos, timed
-                 beside the launch without a halo on the same block
+                 beside the launch without a halo on the same block; the
+                 resize kernel at each of a student class map's 25 resizes
+                 (bf16) and at .logits' fp32 x8, bit for bit its plain
+                 version and within an ulp of the contraction it replaced,
+                 timed beside both and its byte bound
   reference      the kernel path in fp32 against the reference network's
                  output on the parity assets (tests/assets/parity_*.npz)
   serve_student  the student's .logits and .classmap in bf16 at 1024x2048
@@ -735,6 +740,109 @@ def _upsample_case(rng, device):
             "edges": edges}
 
 
+def _serving_resizes(device) -> list:
+    """The resizes of one bf16 student class map at HW, as
+    models/fast_body.py calls the resize kernel: ((N, H, W, C), (Ho, Wo),
+    relu), in call order."""
+    import torch
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            fast_body, student_plan)
+    from fasterseg_tpu_torch.utils import init_random_
+    plan = student_plan()
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), 0),
+                             device=device)
+    calls, real = [], fast_body.resize_bilinear
+
+    def spy(x, out_hw, relu=False):
+        calls.append((tuple(x.shape), tuple(out_hw), relu))
+        return real(x, out_hw, relu)
+
+    fast_body.resize_bilinear = spy
+    try:
+        runner.classmap(torch.zeros((1, *HW, 3), device=device))
+    finally:
+        fast_body.resize_bilinear = real
+    return calls
+
+
+def _ulps_apart(a, b):
+    """|a - b| in units of the last place of their dtype (bf16 or fp32)."""
+    import torch
+    itype, sign = {torch.bfloat16: (torch.int16, 15),
+                   torch.float32: (torch.int32, 31)}[a.dtype]
+
+    def ordered(t):
+        i = t.view(itype).long()
+        return torch.where(i < 0, -(i & ((1 << sign) - 1)), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _resize_reading(rng, device, shape, out_hw, relu, dtype) -> dict:
+    """The resize kernel at one shape: bit for bit its plain version on the
+    card, within one ulp of the contraction it replaced (fp32 in float64)
+    and bit for bit on >= 99.99 % of the elements; ms of each by graph
+    replay beside the byte bound (input and output once)."""
+    import torch
+    from fasterseg_tpu_torch.kernels.resize import (resize_bilinear,
+                                                    resize_bilinear_plain)
+    from fasterseg_tpu_torch.ops.resize import in_float64
+    from fasterseg_tpu_torch.ops.resize import resize_bilinear as contraction
+
+    def old(x):
+        y = in_float64(contraction, x, out_hw)
+        return torch.relu(y) if relu else y
+
+    x = torch.from_numpy(rng.standard_normal(shape).astype("float32"))
+    x = x.to(device).to(dtype)
+    got = resize_bilinear(x, out_hw, relu)
+    label = f"resize {shape} -> {out_hw} {dtype}"
+    check(torch.equal(got, resize_bilinear_plain(x, out_hw, relu)),
+          f"{label}: kernel and plain version differ")
+    apart = _ulps_apart(got, old(x))
+    max_ulps = int(apart.max())
+    equal = (apart == 0).float().mean().item()
+    check(max_ulps <= 1 and equal >= 0.9999,
+          f"{label}: {max_ulps} ulps from the contraction, {equal} equal")
+    del got, apart
+    nbytes = (x.numel() + shape[0] * out_hw[0] * out_hw[1] * shape[3]) * (
+        x.element_size())
+    return {"shape": list(shape), "out_hw": list(out_hw), "relu": relu,
+            "dtype": str(dtype).split(".")[-1],
+            "vs_contraction": {"max_ulps": max_ulps, "equal": equal},
+            "ms": graph_ms(lambda: resize_bilinear(x, out_hw, relu)),
+            "plain_ms": graph_ms(lambda: resize_bilinear_plain(x, out_hw,
+                                                               relu)),
+            "contraction_ms": graph_ms(lambda: old(x)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _resize_case(rng, device) -> dict:
+    """The student class map's resizes at HW in bf16 (each distinct shape
+    read once, the sums over the map's calls) and `.logits`' fp32 x8."""
+    import torch
+    calls = _serving_resizes(device)
+    check(len(calls) == 25, f"resize: {len(calls)} resizes a class map, "
+                            "not 25")
+    shapes = {}
+    for c in calls:
+        shapes[c] = shapes.get(c, 0) + 1
+    readings = []
+    for (shape, out_hw, relu), n in shapes.items():
+        r = _resize_reading(rng, device, shape, out_hw, relu, torch.bfloat16)
+        readings.append({**r, "calls": n})
+    total = lambda k: sum(r[k] * r["calls"] for r in readings)
+    x8 = _resize_reading(rng, device, (1, HW[0] // 8, HW[1] // 8, 19), HW,
+                         False, torch.float32)
+    return {"case": "student class map's resizes", "launches": 25,
+            "shape": f"the 25 of a 1x{HW[0]}x{HW[1]} class map, bf16",
+            "max_abs_err": 0.0,      # bit for bit the plain version
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "library_ms": total("contraction_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": "bytes",
+            "shapes": readings, "logits_x8_fp32": x8}
+
+
 def _conv_shapes() -> dict:
     """The conv shapes the kernels phase reads, by kernel counter: (label,
     H, W, Ci, Co, stride, Ci2), the last the second input's channels of the
@@ -773,6 +881,7 @@ def phase_kernels(seed: int) -> dict:
     cases = {name: [_conv_case(rng, *c[:6], device, ci2=c[6]) for c in shapes]
              for name, shapes in _conv_shapes().items()}
     cases["upsample8_argmax"] = [_upsample_case(rng, device)]
+    cases["resize_bilinear"] = [_resize_case(rng, device)]
     # (S1) the halo mode on every route, at the blocks of a spatial
     # evaluation (the image's 1024 rows split over ranks)
     f32, b16 = torch.float32, torch.bfloat16
@@ -3318,6 +3427,8 @@ def main() -> int:
                          "self_search phase")
     ap.add_argument("--bench-only", action="store_true",
                     help="only build and run the bench phase")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="only build and run the kernels phase")
     ap.add_argument("--detail-dir", default=None, metavar="DIR",
                     help="write the latency phase's long readings (every "
                          "conv shape, the swept table, the CLIs' output) "
@@ -3371,6 +3482,10 @@ def main() -> int:
         phase_build()
         phase_bench()
         return 0
+    if args.kernels_only:
+        phase_build()
+        phase_kernels(args.seed)
+        return 0
     if args.study_only:
         phase_build()
         phase_study(args.seed, args.miou_epochs)
@@ -3409,11 +3524,13 @@ def main() -> int:
     from fasterseg_tpu_torch.kernels import build as kbuild
     sources = {"conv3x3_bn_relu_s1": "conv3x3_bn_relu",
                "conv3x3_bn_relu_s2": "conv3x3_bn_relu",
-               "upsample8_argmax": "upsample8_argmax"}
+               "upsample8_argmax": "upsample8_argmax",
+               "resize_bilinear": "resize_bilinear"}
     replaces = {
         "conv3x3_bn_relu_s1": "fasterseg_tpu/pallas/conv.py:148",
         "conv3x3_bn_relu_s2": "fasterseg_tpu/pallas/conv.py:336",
-        "upsample8_argmax": "fasterseg_tpu/pallas/fused.py:82"}
+        "upsample8_argmax": "fasterseg_tpu/pallas/fused.py:82",
+        "resize_bilinear": None}     # XLA einsums in the JAX package
     summary = []
     for name, cases in kern["cases"].items():
         c = cases[0]     # the heaviest serving shape of each kernel

@@ -4,17 +4,19 @@ A wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
 version only for CPU tensors. Each counts its kernel launches.
 """
 
-from . import conv, fused
+from . import conv, fused, resize
 from .conv import (ConvWeights, conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn,
                    input_parts, round_tf32, split_weights, unpack_weights)
 from .fused import upsample8_argmax, upsample8_argmax_plain
+from .resize import resize_bilinear, resize_bilinear_plain
 
 
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel."""
     return {"conv3x3_bn_relu_s1": conv.launches[1],
             "conv3x3_bn_relu_s2": conv.launches[2],
-            "upsample8_argmax": fused.launches["upsample8_argmax"]}
+            "upsample8_argmax": fused.launches["upsample8_argmax"],
+            "resize_bilinear": resize.launches["resize_bilinear"]}
 
 
 def halo_launch_counts() -> dict:
@@ -36,4 +38,5 @@ def reset_launch_counts() -> None:
     conv.halo_launches.update({1: 0, 2: 0})
     conv.route_launches.update({r: 0 for r in conv.ROUTES})
     fused.launches["upsample8_argmax"] = 0
+    resize.launches["resize_bilinear"] = 0
 

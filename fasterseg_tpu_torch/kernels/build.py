@@ -33,7 +33,7 @@ from typing import Dict, Iterable, Optional, Tuple
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
-SOURCES = ("conv3x3_bn_relu", "upsample8_argmax")
+SOURCES = ("conv3x3_bn_relu", "upsample8_argmax", "resize_bilinear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

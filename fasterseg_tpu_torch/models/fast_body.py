@@ -9,12 +9,13 @@ fast_body.py:217-287), cell for cell:
 * 1x1 convs (ARM, FFM, classifier) and FactorizedReduce's two offset
   stride-2 1x1 convs are fp32 matrix products over channels with a fused
   fp32 epilogue, as the JAX package leaves them to XLA einsums;
-* zoomed-cell and aggregation resizes are the constant-matrix contractions
-  of ops/resize.py;
+* zoomed-cell and aggregation resizes run `kernels.resize_bilinear` (both
+  axes in one launch; a zoomed stride-1 cell's ReLU fused into its x2);
 * with fp32 activations the products (1x1 convs, resizes) sum in float64
-  and round once (`_product`, `ops.resize.in_float64`), so their bits do
-  not depend on the shapes the BLAS library is given: a block of an image
-  split over H gets the whole image's;
+  and round once (`_product`; the resize kernel, and on a Block
+  `ops.resize.in_float64`), so their bits do not depend on the shapes the
+  BLAS library is given: a block of an image split over H gets the whole
+  image's;
 * a refine conv over a channel concat hands its two NHWC inputs to the conv
   kernel, which reads them in place (no concat is written).
 
@@ -24,9 +25,10 @@ once by `fold_weights`, not per call.
 The same walk runs on an image split over H across ranks: a map is then a
 `parallel.spatial.Block` (this rank's rows, their partition, the exchange),
 every 3x3 conv takes its neighbours' halo rows (the kernel's halo mode),
-every align-corners resize takes its row window (ops/resize.py `*_rows`),
-and the rest is local to the rows. A stride-2 op needs an even block start
-(`row_multiple`).
+every align-corners resize takes its row window (the contractions of
+ops/resize.py `*_rows`, counted as `resize.contraction` by
+utils/profiling.py), and the rest is local to the rows. A stride-2 op needs
+an even block start (`row_multiple`).
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ import torch
 from ..core.plan import NetworkPlan
 from ..kernels.conv import (ConvWeights, conv3x3_bn_relu, input_parts,
                             split_weights)
+from ..kernels.resize import resize_bilinear
 from ..ops.conv import BatchNorm, Conv
 from ..ops.primitives import FactorizedReduce
-from ..ops.resize import (downsample_half, downsample_half_rows, in_float64,
-                          resize_bilinear, resize_bilinear_rows)
+from ..ops.resize import (downsample_half_rows, in_float64,
+                          resize_bilinear_rows)
 from ..parallel import spatial
 from ..parallel.spatial import Block
 from ..utils import profiling
@@ -152,18 +155,22 @@ def _local(fn, x, *args, **kw):
         x, *args, **kw)
 
 
-def _resize_to(x, like):
+def _resize_to(x, like, relu: bool = False):
     """Align-corners resize of x to the size (on Blocks, the rows) of
-    `like`."""
+    `like`, then ReLU where asked."""
     if isinstance(x, Block):
-        return in_float64(resize_bilinear_rows, x,
-                          (like.height, like.t.shape[2]), like.part)
-    return in_float64(resize_bilinear, x, (like.shape[1], like.shape[2]))
+        profiling.count("resize.contraction")
+        y = in_float64(resize_bilinear_rows, x,
+                       (like.height, like.t.shape[2]), like.part)
+        return _local(torch.relu, y) if relu else y
+    return resize_bilinear(x, (like.shape[1], like.shape[2]), relu)
 
 
 def _downsample(x):
-    return in_float64(downsample_half_rows if isinstance(x, Block)
-                      else downsample_half, x)
+    if isinstance(x, Block):
+        profiling.count("resize.contraction")
+        return in_float64(downsample_half_rows, x)
+    return resize_bilinear(x, (x.shape[1] // 2, x.shape[2] // 2))
 
 
 def _cat(xs):
@@ -229,7 +236,7 @@ def _run_cell(op: int, x, p: Dict, stride: int):
         else:
             y = conv3x3(y, p["c0"], relu=stride == 2)
         if stride == 1:
-            y = _local(torch.relu, _resize_to(y, x))
+            y = _resize_to(y, x, relu=True)
         return y
     raise ValueError(f"unknown op {op}")
 

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's models/infer.py. The five stem convs, every
 3x3 conv of the body and the head run the hand-written conv kernel
 (kernels/conv.py); the class map comes from the fused upsample-argmax kernel
-(kernels/fused.py), so full-resolution logits are never written for it.
+(kernels/fused.py), so full-resolution logits are never written for it; the
+full-resolution logits come from the resize kernel (kernels/resize.py).
 
 `.logits` also runs on an image split over H across ranks: given this rank's
 `parallel.spatial.Block` of the image, it returns its Block of the
@@ -20,6 +21,7 @@ import torch
 from ..core.plan import NetworkPlan
 from ..kernels.conv import ConvWeights
 from ..kernels.fused import upsample8_argmax, upsample8_argmax_plain
+from ..kernels.resize import resize_bilinear
 from ..ops.conv import Conv
 from ..ops.resize import in_float64, scale_by, scale_by_rows
 from ..parallel.spatial import Block
@@ -53,8 +55,10 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class InferenceRunner:
     """Eval-mode forwards of a derived network.
 
-    .logits(x)   -> (1, H, W, classes) full-resolution logits: x8 `scale_by`
-                    of the 1/8 logits (reference contract)
+    .logits(x)   -> (1, H, W, classes) full-resolution logits: the x8
+                    align-corners resize of the 1/8 logits (reference
+                    contract), by the resize kernel (`scale_by`'s
+                    contraction on the plain path and on a Block)
     .classmap(x) -> (1, H, W) int32 class map from the fused upsample-argmax
 
     x is (1, H, W, 3) NHWC. `.logits` also takes this rank's
@@ -123,8 +127,12 @@ class InferenceRunner:
         with profiling.span("infer.logits"):
             p8 = self.p8(x)
             with profiling.span("infer.upsample"):
-                return in_float64(scale_by_rows if isinstance(p8, Block)
-                                  else scale_by, p8, 8)
+                if isinstance(p8, Block):
+                    profiling.count("resize.contraction")
+                    return in_float64(scale_by_rows, p8, 8)
+                if not self.fast_stem_enabled:
+                    return in_float64(scale_by, p8, 8)
+                return resize_bilinear(p8, (p8.shape[1] * 8, p8.shape[2] * 8))
 
     @torch.inference_mode()
     def classmap(self, x: torch.Tensor) -> torch.Tensor:

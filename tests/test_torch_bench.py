@@ -97,7 +97,8 @@ def test_main_prints_bench_keys_and_the_ports(capsys):
     assert line["dtype"] == "bfloat16"
     # the plain versions on the CPU launch no kernel
     assert set(line["launches"]) == {"conv3x3_bn_relu_s1",
-                                     "conv3x3_bn_relu_s2", "upsample8_argmax"}
+                                     "conv3x3_bn_relu_s2", "upsample8_argmax",
+                                     "resize_bilinear"}
     assert not any(line["launches"].values())
     assert line["baseline"].startswith("163.9 FPS")
 

@@ -19,6 +19,7 @@ from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_plain, input_parts,
                                          split_weights, upsample8_argmax,
                                          upsample8_argmax_plain)
+from _torch_resize_cases import EDGE_RESIZES, SERVING_RESIZES, ulps
 from _torch_upsample_cases import UPSAMPLE_SHAPES, upsample_inputs
 
 pytestmark = pytest.mark.cuda
@@ -433,6 +434,79 @@ def test_graph_replay_matches(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---- the resize kernel (csrc/resize_bilinear.cu) ----
+
+# beside the 256x512 cases, the student's largest resizes at 1024x2048 and
+# the fp32 x8 of `.logits` at full size
+FULL_SIZE_RESIZES = [((1, 128, 256, 64), (64, 128), False),
+                     ((1, 64, 128, 64), (128, 256), True),
+                     ((1, 128, 256, 19), (1024, 2048), False)]
+
+
+@pytest.mark.parametrize("shape,out_hw,relu",
+                         SERVING_RESIZES + EDGE_RESIZES + FULL_SIZE_RESIZES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_kernel_matches_plain_and_contraction(cuda_device, gen, shape,
+                                                     out_hw, relu, dtype):
+    """Bit for bit the plain version on the same card, and within one ulp
+    of the cuBLAS contraction it replaced (fp32 maps in float64), equal on
+    at least 99.99 % of the elements."""
+    from fasterseg_tpu_torch.kernels.resize import (resize_bilinear,
+                                                    resize_bilinear_plain)
+    from fasterseg_tpu_torch.ops.resize import in_float64
+    from fasterseg_tpu_torch.ops.resize import resize_bilinear as contraction
+    x = torch.from_numpy(gen.standard_normal(shape).astype(np.float32))
+    x = x.to(cuda_device).to(dtype)
+    before = kernels.launch_counts()["resize_bilinear"]
+    got = resize_bilinear(x, out_hw, relu)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["resize_bilinear"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (
+        shape[0], *out_hw, shape[3])
+    assert torch.equal(got, resize_bilinear_plain(x, out_hw, relu))
+    want = in_float64(contraction, x, out_hw)
+    want = torch.relu(want) if relu else want
+    apart = ulps(got, want)
+    assert int(apart.max()) <= 1
+    assert (apart == 0).float().mean().item() >= 0.9999
+
+
+def test_student_classmap_resizes_through_the_kernel(cuda_device):
+    """A student class map at 256x512 launches the resize kernel 25 times
+    and takes no contraction; captured in a CUDA graph and replayed, it
+    gives the launch-by-launch class map, for two images in turn."""
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            student_plan)
+    from fasterseg_tpu_torch.utils import init_random_, profiling
+    plan = student_plan()
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), 0),
+                             device=cuda_device)
+    rng = np.random.default_rng(1)
+    xs = [torch.from_numpy(rng.standard_normal((1, 256, 512, 3)).astype(
+        np.float32)).to(cuda_device) for _ in range(2)]
+    runner.classmap(xs[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    profiling.reset()
+    with profiling.recording():
+        first = runner.classmap(xs[0])
+    torch.cuda.synchronize()
+    counters = profiling.summary()["counters"]
+    profiling.reset()
+    assert kernels.launch_counts()["resize_bilinear"] == 25
+    assert counters.get("resize.contraction", 0) == 0
+    want = [first, runner.classmap(xs[1])]
+    static = xs[0].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = runner.classmap(static)
+    for x, w in zip(xs, want):
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, w)
 
 
 # ---- the eval slice on the card ----

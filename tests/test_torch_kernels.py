@@ -24,6 +24,12 @@ from fasterseg_tpu_torch.kernels import (conv3x3_bn_relu,
                                          upsample8_argmax,
                                          upsample8_argmax_plain)
 from fasterseg_tpu_torch.kernels import fused
+from fasterseg_tpu_torch.kernels.resize import (resize_bilinear,
+                                                resize_bilinear_plain, taps)
+from fasterseg_tpu_torch.ops.resize import in_float64, interp_matrix
+from fasterseg_tpu_torch.ops.resize import resize_bilinear as contraction
+from _torch_resize_cases import (EDGE_RESIZES, SERVING_RESIZES, TAP_SIZES,
+                                ulps)
 from _torch_upsample_cases import UPSAMPLE_SHAPES, upsample_inputs
 
 
@@ -394,5 +400,130 @@ def test_cpu_wrappers_launch_nothing(rng):
     x, w, s, b = _t(*_conv_inputs(rng, 8, 8, 4, 8))
     conv3x3_bn_relu(x, w, s, b, stride=2)
     upsample8_argmax(torch.zeros((1, 2, 2, 3)))
+    resize_bilinear(x, (4, 16), relu=True)
+    assert "resize_bilinear" in kernels.launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.route_launch_counts().values()) == {0}
+
+
+# ---- the resize kernel's plain version (kernels/resize.py) ----
+
+
+@pytest.mark.parametrize("in_size,out_size", TAP_SIZES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_taps_are_the_matrix_nonzeros(in_size, out_size, dtype):
+    """Put back where they came from, the taps are the contraction's matrix
+    in `dtype`, every row's nonzeros at lo and hi (the edge row's single 1
+    at lo); an axis that keeps its size is the identity."""
+    lo, hi, w_lo, w_hi = taps(in_size, out_size, dtype)
+    rows = np.arange(out_size)
+    m = np.zeros((out_size, in_size), np.float32)
+    np.add.at(m, (rows, lo), w_lo)
+    np.add.at(m, (rows, hi), w_hi)
+    if in_size == out_size:
+        want = np.eye(in_size, dtype=np.float32)
+    else:
+        want = interp_matrix(in_size, out_size, dtype,
+                             torch.device("cpu")).float().numpy()
+    np.testing.assert_array_equal(m, want)
+    assert ((0 <= lo) & (lo <= hi) & (hi <= lo + 1) & (hi < in_size)).all()
+    assert (w_hi[hi == lo] == 0).all()
+    if in_size != out_size:
+        # the corners are aligned: the first output reads the first source
+        # row alone, the last output reaches the last source row
+        assert lo[0] == 0 and w_lo[0] == 1
+        assert out_size == 1 or hi[-1] == in_size - 1
+
+
+def _contraction(x: torch.Tensor, out_hw, relu: bool) -> torch.Tensor:
+    """The serving path's resize before the kernel: the matrix contractions
+    of ops/resize.py, fp32 maps in float64, then torch.relu."""
+    y = in_float64(contraction, x, out_hw)
+    return torch.relu(y) if relu else y
+
+
+@pytest.mark.parametrize("shape,out_hw,relu", SERVING_RESIZES + EDGE_RESIZES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_plain_matches_contraction(rng, shape, out_hw, relu, dtype):
+    """Within one ulp of the contraction everywhere and bit for bit on at
+    least 99.99 % of the elements."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = x.to(dtype)
+    got = resize_bilinear_plain(x, out_hw, relu)
+    want = _contraction(x, out_hw, relu)
+    assert got.dtype == dtype and got.shape == want.shape
+    apart = ulps(got, want)
+    assert int(apart.max()) <= 1
+    assert (apart == 0).float().mean().item() >= 0.9999
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(resize_bilinear(x, out_hw, relu), got)
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    ((1, 8, 16, 64), (16, 32)), ((1, 16, 32, 32), (32, 64)),
+    ((2, 7, 9, 19), (13, 4)), ((1, 32, 64, 19), (256, 512))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_fused_relu_is_relu_after(rng, shape, out_hw, dtype):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = x.to(dtype)
+    got = resize_bilinear(x, out_hw, relu=True)
+    assert torch.equal(got, torch.relu(resize_bilinear(x, out_hw)))
+    assert bool((got >= 0).all()) and bool((got == 0).any())
+
+
+def _misaligned(shape):
+    flat = torch.zeros(int(np.prod(shape)) + 1)
+    return flat[1:].view(shape)
+
+
+@pytest.mark.parametrize("bad", ["int", "half", "rank", "permuted",
+                                 "misaligned", "zero_out", "tall_out"])
+def test_resize_wrapper_rejects_bad_input(bad):
+    x, out_hw = torch.zeros((1, 4, 6, 8)), (8, 12)
+    if bad == "int":
+        x = x.int()
+    elif bad == "half":
+        x = x.half()
+    elif bad == "rank":
+        x = x[0]
+    elif bad == "permuted":
+        x = torch.zeros((1, 8, 4, 6)).permute(0, 2, 3, 1)
+    elif bad == "misaligned":
+        x = _misaligned((1, 4, 6, 8))
+        assert x.is_contiguous()
+    elif bad == "zero_out":
+        out_hw = (0, 12)
+    else:
+        out_hw = (70000, 12)
+    with pytest.raises((TypeError, ValueError)):
+        resize_bilinear(x, out_hw)
+    with pytest.raises((TypeError, ValueError)):
+        resize_bilinear_plain(x, out_hw)
+
+
+def test_serving_resizes_take_the_wrapper(monkeypatch):
+    """A student class map resizes 25 times, each through
+    `kernels.resize_bilinear` (10 with the zoomed stride-1 cell's ReLU
+    fused), and counts no contraction."""
+    from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
+                                            fast_body, student_plan)
+    from fasterseg_tpu_torch.utils import init_random_, profiling
+    calls = []
+
+    def spy(x, out_hw, relu=False):
+        calls.append(relu)
+        return resize_bilinear(x, out_hw, relu)
+
+    monkeypatch.setattr(fast_body, "resize_bilinear", spy)
+    plan = student_plan()
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), 0),
+                             device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 64, 128, 3)).astype(np.float32))
+    profiling.reset()
+    with profiling.recording():
+        runner.classmap(x)
+    counters = profiling.summary()["counters"]
+    profiling.reset()
+    assert len(calls) == 25 and sum(calls) == 10
+    assert "resize.contraction" not in counters

@@ -255,6 +255,37 @@ def test_row_window_reaches_past_one_row():
     assert resize.row_window(10, 10, 2, 4) == (2, 4)
 
 
+def test_blocks_resize_by_contraction_whole_maps_by_the_kernel_wrapper():
+    """Split over two ranks (threads), the student's fp32 logits take the
+    row-window contraction for each of its 25 resizes and the x8 on every
+    rank, counted as `resize.contraction`; the whole image counts none
+    (its resizes run `kernels.resize_bilinear`) and its rows agree with the
+    blocks'."""
+    from fasterseg_tpu_torch.models import DerivedNet, InferenceRunner
+    from fasterseg_tpu_torch.utils import init_random_, profiling
+    plan = student_plan()
+    runner = InferenceRunner(plan, init_random_(DerivedNet(plan), 0),
+                             dtype=torch.float32, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, *W.STUDENT_HW, 3)).astype(np.float32))
+    part = partition(W.STUDENT_HW[0], 2, runner.row_multiple)
+
+    def rank(ex):
+        lo, hi = part.block(ex.rank)
+        return runner.logits(Block(x[:, lo:hi].contiguous(), part, ex)).t
+
+    profiling.reset()
+    with profiling.recording():
+        blocks = W.on_threads(2, rank)
+        split = profiling.summary()["counters"].get("resize.contraction")
+        whole = runner.logits(x)
+        after = profiling.summary()["counters"].get("resize.contraction")
+    profiling.reset()
+    assert split == after == 2 * 26
+    torch.testing.assert_close(torch.cat(blocks, dim=1), whole,
+                               atol=LOGITS_ATOL, rtol=0)
+
+
 # ---- (d) ranks in processes, against one process and against JAX ----
 
 
