@@ -2,14 +2,15 @@
 
 Traffic parameters: `images` seeded uint8 images of `height` x `width` with
 labels (`ignore_share` of the pixels 255), held in host memory; the
-protocol's `scales` and `flip`; `dtype` of the forward
-(`InferenceRunner.logits`); `warmup_passes`; `trace_passes` (the traced
-sub-window, after the window); `check_from`: one pass, drawn from the seed
-among the window's first `check_from`, keeps the logits its forward
-returned. Each pass evaluates every image and returns the hist on the host.
+protocol's `scales` and `flip`; `dtype` of the forward (the program's
+`.logits`, `InferenceRunner.logits` for FasterSeg); `warmup_passes`;
+`trace_passes` (the traced sub-window, after the window); `check_from`: one
+pass, drawn from the seed among the window's first `check_from`, keeps the
+logits its forward returned. Each pass evaluates every image and returns the
+hist on the host.
 
-The check: the kept logits against the reference's fp32 logits of the same
-images (the largest difference, in units of the reference logits'
+The check: the kept logits against the family reference's fp32 logits of
+the same images (the largest difference, in units of the reference logits'
 standard deviation); every pass's hist against the hist the protocol's
 arithmetic makes of the kept logits (exact: the same images each pass);
 and, as a reading, every pass's hist against the reference's.
@@ -21,10 +22,8 @@ import time
 
 import torch
 
-from .. import flops, harness
+from .. import harness
 from ..reference import evaluate as ref_eval
-from ..reference import net as ref_net
-from ..weights import make as make_weights
 
 
 def run(ctx: harness.Ctx) -> harness.Outcome:
@@ -36,12 +35,9 @@ def run(ctx: harness.Ctx) -> harness.Outcome:
         raise ValueError("the check's reference is single scale, no flip")
 
     from fasterseg_tpu_torch.eval import Evaluator
-    from fasterseg_tpu_torch.models import InferenceRunner
-    weights = make_weights(ctx.plan, ctx.seed, dev)
-    pplan, net = harness.program_net(c, weights, dev)
-    runner = InferenceRunner(pplan, net, dtype=getattr(torch, t["dtype"]),
-                             device=dev)
-    del net
+    fam = ctx.family
+    weights = fam.weights(ctx.plan, ctx.seed, dev)
+    runner = fam.program(c, weights, dev, getattr(torch, t["dtype"]))
     images, labels = harness.sample_frames(
         N, H, W, ctx.generator(2), dev, t["ignore_share"], c["num_classes"])
     host = [{"data": images[i].cpu().numpy(), "label": labels[i].cpu().numpy()}
@@ -83,16 +79,17 @@ def run(ctx: harness.Ctx) -> harness.Outcome:
 
     checks, readings = check(ctx, weights, images, labels, keep["logits"],
                              hists)
-    hw = (H, W)
     elem = torch.tensor([], dtype=getattr(torch, t["dtype"])).element_size()
+    costs = fam.costs(ctx.plan, (H, W), elem)
+    # `.logits` launches no upsample + argmax
+    costs.pop("upsample_bound_s")
+    costs.pop("upsamples")
     return harness.Outcome(
         setup_s=setup_s, window_s=window_s, units=passes * N,
         items=passes * N, unit_s=[s / N for s in pass_s for _ in range(N)],
         attempted=passes, failed=0, memory_peak_bytes=peak,
         checks=checks, readings=readings, trace=trace,
-        flops_per_unit=flops.plan_flops(ctx.plan, hw),
-        conv_bound_s=flops.convs3x3_bound_s(ctx.plan, hw, elem),
-        convs3x3=len(flops.convs3x3(ctx.plan, hw)))
+        **harness.cost_fields(costs))
 
 
 def check(ctx, weights, images, labels, kept, hists):
@@ -103,11 +100,12 @@ def check(ctx, weights, images, labels, kept, hists):
     errors, from_kept, from_ref = [], 0, 0
     for i, logits in enumerate(kept):
         x = ref_eval.normalise(images[i:i + 1], c["image_mean"], c["image_std"])
-        ref = ref_net.logits(ctx.plan, weights, x)
+        ref = ctx.family.reference_logits(ctx.plan, weights, x)
         if ctx.control:
             # the reference in the precision below the stated one, in the
             # program's place
-            low = ref_net.logits(ctx.plan, weights, x, ctx.check["control"])
+            low = ctx.family.reference_logits(ctx.plan, weights, x,
+                                              ctx.check["control"])
             logits = low.permute(0, 2, 3, 1)
         errors.append(ref_eval.logit_error(logits, ref))
         from_kept = from_kept + ref_eval.hist_of_logits(

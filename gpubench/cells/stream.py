@@ -1,4 +1,5 @@
-"""A closed-loop stream of class-map frames through `InferenceRunner.classmap`.
+"""A closed-loop stream of class-map frames through the program's `.classmap`
+(the family's entry point: `InferenceRunner.classmap` for FasterSeg).
 
 Traffic parameters: `height`, `width`, `frames` (distinct seeded frames,
 served in turn), `dtype` (the runner's), `capture` ("graph": the call is
@@ -9,10 +10,10 @@ graph's static input, replays it and synchronises; "eager": each frame calls
 `check_frames` positions drawn from the seed among the first `check_from`
 frames, whose class maps are kept.
 
-The check: the reference's fp32 logits of each sampled frame's image; how
-far the served classes lie below the reference's best logit (the widest gap,
-in logits and in units of the frame's logit spread, the mean gap, the share
-of pixels whose class is not the reference's).
+The check: the family reference's fp32 logits of each sampled frame's
+image; how far the served classes lie below the reference's best logit (the
+widest gap, in logits and in units of the frame's logit spread, the mean
+gap, the share of pixels whose class is not the reference's).
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ import time
 
 import torch
 
-from .. import flops, harness
+from .. import harness
 from ..reference import evaluate as ref_eval
-from ..reference import net as ref_net
-from ..weights import make as make_weights
 
 
 def run(ctx: harness.Ctx) -> harness.Outcome:
@@ -33,11 +32,9 @@ def run(ctx: harness.Ctx) -> harness.Outcome:
     dtype = getattr(torch, t["dtype"])
     H, W, F = t["height"], t["width"], t["frames"]
 
-    from fasterseg_tpu_torch.models import InferenceRunner
-    weights = make_weights(ctx.plan, ctx.seed, dev)
-    pplan, net = harness.program_net(ctx.config, weights, dev)
-    runner = InferenceRunner(pplan, net, dtype=dtype, device=dev)
-    del net
+    fam = ctx.family
+    weights = fam.weights(ctx.plan, ctx.seed, dev)
+    runner = fam.program(ctx.config, weights, dev, dtype)
     images, _ = harness.sample_frames(F, H, W, ctx.generator(1), dev)
     frames = harness.normalised(images, ctx.config).to(dtype)[:, None]
     del images
@@ -97,33 +94,29 @@ def run(ctx: harness.Ctx) -> harness.Outcome:
     ctx.log("window closed, program freed")
 
     checks, readings = check(ctx, weights, frames, kept)
-    hw = (H, W)
     elem = torch.tensor([], dtype=dtype).element_size()
     return harness.Outcome(
         setup_s=setup_s, window_s=window_s, units=units, items=units,
         unit_s=unit_s, attempted=units, failed=0, memory_peak_bytes=peak,
-        checks=checks, readings=readings, trace=trace, flops_per_unit=flops.plan_flops(ctx.plan, hw),
-        conv_bound_s=flops.convs3x3_bound_s(ctx.plan, hw, elem),
-        convs3x3=len(flops.convs3x3(ctx.plan, hw)),
-        upsample_bound_s=flops.upsample_bound_s(
-            H // 8, W // 8, ctx.plan.num_classes, H, W, elem),
-        upsamples=1)
+        checks=checks, readings=readings, trace=trace,
+        **harness.cost_fields(fam.costs(ctx.plan, (H, W), elem)))
 
 
 def check(ctx, weights, frames, kept):
     """The sampled class maps against the reference's logits."""
     F = frames.shape[0]
+    ref_logits = ctx.family.reference_logits
     gaps = []
     refs = {}
     for i, classmap in sorted(kept.items()):
         j = i % F
         if j not in refs:
             x = frames[j].float().permute(0, 3, 1, 2).contiguous()
-            refs[j] = ref_net.logits(ctx.plan, weights, x)
+            refs[j] = ref_logits(ctx.plan, weights, x)
             if ctx.control:
                 # the reference in the precision below the served one, in
                 # the program's place
-                refs[j] = (refs[j], ref_net.logits(
+                refs[j] = (refs[j], ref_logits(
                     ctx.plan, weights, x, ctx.check["control"]).argmax(1))
         ref = refs[j][0] if ctx.control else refs[j]
         served = refs[j][1] if ctx.control else classmap

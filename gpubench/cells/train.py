@@ -1,4 +1,5 @@
-"""Training steps of `TrainSession` fed by the port's `TrainLoader`.
+"""Training steps of `TrainSession` fed by the port's `TrainLoader`: FasterSeg
+networks only (another family's configuration is refused by name).
 
 Traffic parameters: `mode` (the session's), `batch_size`, `crop` (h, w),
 `scales` (the augmentation's), `samples` seeded uint8 image/label pairs of
@@ -76,6 +77,11 @@ def _hyper(c, t, config):
 
 def run(ctx: harness.Ctx) -> harness.Outcome:
     t, c, dev = ctx.traffic, ctx.config, ctx.device
+    family = harness.family_name(c)
+    if family != "fasterseg":
+        raise SystemExit(f"gpubench: the train kind trains FasterSeg "
+                         f"networks only; {c['name']!r} is of the family "
+                         f"{family!r}")
     batch, crop = t["batch_size"], tuple(t["crop"])
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True

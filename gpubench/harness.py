@@ -1,10 +1,30 @@
-"""What the cell modules share: the run's context, what a run hands to the
-metric readers, the program's network built from a configuration file, and
-the clock and synchronisation of the run's device."""
+"""What the cell modules share: the run's context, the configuration's
+family module, what a run hands to the metric readers, the program's network
+built from a FasterSeg configuration file, and the clock and synchronisation
+of the run's device.
+
+A family module, `gpubench/families/<family>.py` in the checkout (the
+configuration file's `"family"`, `fasterseg` where it names none), holds
+what depends on the architecture:
+
+- `plan(config)`: the reference's plan of the network;
+- `weights(plan, seed, device)`: seeded parameters made on the device;
+- `reference_logits(plan, weights, x, precision=None)`: fp32 full-resolution
+  logits (N, classes, H, W) of an NCHW fp32 image, plain and importing
+  nothing of the port; `precision` other than None is the traffic's control;
+- `program(config, weights, device, dtype)`: the port's entry point, an
+  object with `.classmap(x)` and `.logits(x)` of NHWC images (the only place
+  a family imports the port);
+- `costs(plan, hw, elem_bytes)`: a unit's cost terms at input `hw`, at least
+  `COST_FIELDS`; a reader of a further term reads `Outcome.costs`.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import os
+import re
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
@@ -12,7 +32,31 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .reference.plan import Plan, build_plan
+DEFAULT_FAMILY = "fasterseg"
+COST_FIELDS = ("flops_per_unit", "conv_bound_s", "convs3x3",
+               "upsample_bound_s", "upsamples")
+
+
+def load_file(path: str, module_name: str):
+    """The module of the Python file at `path`, loaded by path."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family_name(config: Dict) -> str:
+    return config.get("family", DEFAULT_FAMILY)
+
+
+def load_family(root: str, name: str):
+    """The family module `gpubench/families/<name>.py` of the checkout."""
+    path = os.path.join(root, "gpubench", "families", f"{name}.py")
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]*", name) or (
+            not os.path.isfile(path)):
+        raise SystemExit(f"gpubench: no module for the family {name!r} "
+                         f"(gpubench/families/{name}.py)")
+    return load_file(path, "gpubench_family_" + re.sub(r"\W", "_", name))
 
 
 @dataclasses.dataclass
@@ -28,10 +72,12 @@ class Ctx:
     device: torch.device
     t_start: float
     control: bool = False    # judge the reference in lower precision instead
-    plan: Optional[Plan] = None
+    family: Optional[object] = None   # the configuration's family module
+    plan: Optional[object] = None     # the family's plan of the network
 
     def __post_init__(self):
-        self.plan = build_plan(self.config)
+        self.family = load_family(self.root, family_name(self.config))
+        self.plan = self.family.plan(self.config)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -72,13 +118,21 @@ class Outcome:
     convs3x3: int = 0                      # 3x3 convs a unit launches
     upsample_bound_s: Optional[float] = None
     upsamples: int = 0
+    costs: Dict[str, float] = dataclasses.field(default_factory=dict)
     device_type: str = "cuda"
 
 
+def cost_fields(costs: Dict[str, float]) -> Dict:
+    """`Outcome` keywords of a family's cost terms: the named fields, and
+    every term under `costs`."""
+    return dict({k: costs[k] for k in COST_FIELDS if k in costs},
+                costs=dict(costs))
+
+
 def program_plan(config: Dict):
-    """The port's plan of the configuration's network, decoded by the port
-    from the architecture logits the file holds; it must decode to the
-    genotypes the file states."""
+    """FasterSeg: the port's plan of the configuration's network, decoded
+    by the port from the architecture logits the file holds; it must decode
+    to the genotypes the file states."""
     from fasterseg_tpu_torch.core.genotype import ArchParams, decode_network
     from fasterseg_tpu_torch.core.plan import build_plan as port_build_plan
     a = {k: np.asarray(v, np.float32) for k, v in config["arch"].items()}
@@ -105,7 +159,8 @@ def check_genotypes(config: Dict, genos: Dict) -> None:
 
 
 def program_net(config: Dict, weights: Dict[str, torch.Tensor], device):
-    """(plan, DerivedNet) of the port with the benchmark's weights."""
+    """FasterSeg: (plan, DerivedNet) of the port with the benchmark's
+    weights."""
     from fasterseg_tpu_torch.models import DerivedNet
     plan = program_plan(config)
     net = DerivedNet(plan).to(device)

@@ -6,16 +6,18 @@ from the root of a checkout. Everything is found by name from
 `BENCHMARK.json`: the cell's configuration file, its traffic file
 `gpubench/traffic/<traffic>.json` (whose `kind` names the module in
 `gpubench/cells/`, and whose `check` holds the comparison's limits and
-control) and each metric's reader `gpubench/metrics/<metric>.py`. A new
-cell of a known kind is a new `workloads` entry and a traffic file.
+control), the configuration's family module `gpubench/families/<family>.py`
+(see `harness.py`) and each metric's reader `gpubench/metrics/<metric>.py`.
+A new cell of a known kind is a new `workloads` entry and a traffic file; a
+configuration of another architecture adds its family module.
 
 The run makes its weights and inputs from the seed on the card, warms up,
 measures for `--seconds`, with `--trace 1` then profiles a few more units,
 then compares what the measured window produced with the plain reference
-under `gpubench/reference/`. The last line of standard output is one JSON
-object: correct, attempted, failed, metrics (end-to-end ones, or with
-`--trace 1` the per-layer ones), device (and a trace's breakdown), and last
-the numbers compared with their limits, which also end standard error.
+of its family. The last line of standard output is one JSON object:
+correct, attempted, failed, metrics (end-to-end ones, or with `--trace 1`
+the per-layer ones), device (and a trace's breakdown), and last the numbers
+compared with their limits, which also end standard error.
 
 Without a CUDA card, or with fewer cards than the cell asks for, it exits
 with code 3 and prints no result; if JAX or the JAX package is loaded once
@@ -30,7 +32,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import importlib  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -72,12 +73,9 @@ def _applies(metric, cell, end_to_end_names):
 
 
 def _reader(root, name):
-    path = os.path.join(root, "gpubench", "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "gpubench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    from gpubench.harness import load_file
+    return load_file(os.path.join(root, "gpubench", "metrics", f"{name}.py"),
+                     "gpubench_metric_" + name.replace(".", "_")).read
 
 
 def _cache_dirs(root):

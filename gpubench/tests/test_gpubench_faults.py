@@ -16,7 +16,7 @@ import torch
 from .rehearse import run_cell, tiny_root
 
 CELLS = ("student-stream-graph", "student-stream-eager", "student-eval-fp32",
-         "teacher-train")
+         "teacher-train", "teacher-stream-graph")
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,8 @@ def test_control_is_not_correct(root, cell):
 
 
 @pytest.mark.parametrize("cell", ["student-stream-graph",
-                                  "student-stream-eager"])
+                                  "student-stream-eager",
+                                  "teacher-stream-graph"])
 def test_altered_class_map_is_not_correct(root, cell, monkeypatch):
     from fasterseg_tpu_torch.models.infer import InferenceRunner
     real = InferenceRunner.classmap

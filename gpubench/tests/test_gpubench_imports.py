@@ -1,5 +1,6 @@
 """Nothing under gpubench/ imports JAX or the JAX package; the reference
-imports nothing of the port either. Top-level names compare whole:
+imports nothing of the port either, and a family module imports the port
+only inside its `program`. Top-level names compare whole:
 `fasterseg_tpu_torch` begins with `fasterseg_tpu` and is allowed outside
 the reference."""
 
@@ -45,6 +46,39 @@ def test_no_jax(path):
                          ids=lambda p: os.path.relpath(p, GPUBENCH))
 def test_reference_imports_nothing_of_the_port(path):
     assert "fasterseg_tpu_torch" not in set(_top_level_imports(path))
+
+
+FAMILIES = os.path.join(GPUBENCH, "families")
+
+
+def _port_imports_outside_program(tree, inside=False):
+    """Imports of the port that no function named `program` encloses."""
+    for node in ast.iter_child_nodes(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)) and not inside:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            for name in names:
+                if name.split(".")[0] == "fasterseg_tpu_torch":
+                    yield node.lineno
+        yield from _port_imports_outside_program(
+            node, inside or (isinstance(node, ast.FunctionDef)
+                             and node.name == "program"))
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(FAMILIES)
+                                         if f.endswith(".py")))
+def test_a_family_imports_the_port_only_in_program(name):
+    with open(os.path.join(FAMILIES, name)) as f:
+        tree = ast.parse(f.read(), name)
+    assert list(_port_imports_outside_program(tree)) == []
+
+
+def test_the_family_rule_finds_a_port_import_outside_program():
+    tree = ast.parse("import fasterseg_tpu_torch\n"
+                     "def program():\n    from fasterseg_tpu_torch import m\n"
+                     "def reference_logits():\n"
+                     "    from fasterseg_tpu_torch.models import x\n")
+    assert list(_port_imports_outside_program(tree)) == [1, 5]
 
 
 def test_the_check_compares_names_whole():

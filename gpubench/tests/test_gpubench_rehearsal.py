@@ -12,7 +12,7 @@ import pytest
 from .rehearse import REPO, run_cell, tiny_root
 
 CELLS = ("student-stream-graph", "student-stream-eager", "student-eval-fp32",
-         "teacher-train")
+         "teacher-train", "teacher-stream-graph")
 REQUIRED = ["correct", "attempted", "failed", "metrics", "device"]
 
 
