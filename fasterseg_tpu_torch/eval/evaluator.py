@@ -10,11 +10,16 @@ cv2's half-pixel sampling and summed) -> argmax (first maximum) -> confusion
 hist.
 
 At single scale the uint8 images and labels go to the device and only the
-counts come back. Multi-scale resizes each uint8 image on the host first, as
-the reference does. Sliding-window eval accumulates crop probabilities on the
-host. The forward is any callable on NHWC fp32 tensors on the evaluator's
-device, e.g. `models.InferenceRunner(...).logits` (the hand-written kernels)
-or a plain `DerivedNet`; the model holds its own weights.
+counts come back. Each batch is written once, straight from the samples,
+into one of two reused host slots (pinned on a card, so the copies out of
+it run without blocking the host); the labels keep their own integer dtype
+where the ignore label fits it (uint8 with 255: every dataset of the package), and
+the card widens them and normalises the images. Multi-scale resizes each
+uint8 image on the host first, as the reference does. Sliding-window eval
+accumulates crop probabilities on the host. The forward is any callable on
+NHWC fp32 tensors on the evaluator's device, e.g.
+`models.InferenceRunner(...).logits` (the hand-written kernels) or a plain
+`DerivedNet`; the model holds its own weights.
 
 With `mesh` (a `parallel.Mesh`) the items are sharded over the ranks as the
 JAX package shards its batches: of each global batch of batch_size x world
@@ -71,6 +76,79 @@ class EvalResult:
         return f"mIoU {self.mean_iu*100:.2f}% acc {self.pixel_acc*100:.2f}%"
 
 
+# label dtypes uploaded as they are where the ignore label fits them; any
+# other is cast to int32 on the host
+_NARROW_LABELS = tuple(np.dtype(t) for t in (np.uint8, np.int8, np.int16,
+                                             np.int32))
+
+
+def _label_dtype(dtype, ignore_label: int) -> np.dtype:
+    """The dtype in which labels of `dtype` go to the device: their own
+    where it is an integer dtype of at most 32 bits that holds
+    `ignore_label` (the padded tail's value), else int32."""
+    dtype = np.dtype(dtype)
+    if dtype in _NARROW_LABELS:
+        info = np.iinfo(dtype)
+        if info.min <= ignore_label <= info.max:
+            return dtype
+    return np.dtype(np.int32)
+
+
+def _fill(dst: np.ndarray, arrays) -> None:
+    """Copy each of `arrays` into a row of `dst`, cast as `astype` casts;
+    each has a row's shape, as `np.stack` would insist."""
+    for row, a in zip(dst, arrays):
+        if a.shape != row.shape:
+            raise ValueError(f"a batch mixes the shapes {a.shape} and "
+                             f"{row.shape}")
+        np.copyto(row, a, casting="unsafe")
+
+
+class _Slot:
+    """One batch's host arrays by name, pinned on a card, kept while their
+    shape and dtype hold; and the event recorded after the copies out of
+    them (none on the CPU, where a copy is done when it returns)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.host = {}
+        self.event = torch.cuda.Event() if self.pinned else None
+
+    def array(self, name: str, shape, dtype) -> np.ndarray:
+        """The slot's host array `name` of `shape` and `dtype`, allocated
+        anew only when they change."""
+        t = self.host.get(name)
+        if t is None or t[1].shape != shape or t[1].dtype != dtype:
+            host = torch.from_numpy(np.empty(shape, dtype))
+            if self.pinned:
+                host = host.pin_memory()
+            t = self.host[name] = (host, host.numpy())
+        return t[1]
+
+    def send(self, *names: str):
+        """Copy the arrays `names` to the device without blocking, then
+        record the event; returns the device tensors. Counter
+        `eval.upload_bytes`."""
+        out = []
+        for name in names:
+            host = self.host[name][0]
+            out.append(host.to(self.device, non_blocking=True))
+            profiling.count("eval.upload_bytes", host.nbytes)
+        if self.event is not None:
+            self.event.record(torch.cuda.current_stream(self.device))
+        return out
+
+    def wait(self) -> None:
+        """Return once the copies out of the slot have run: only then may
+        the host write it again. Counter `eval.stage_wait`, span
+        `eval.copy` around the wait."""
+        if self.event is not None and not self.event.query():
+            profiling.count("eval.stage_wait")
+            with profiling.span("eval.copy"):
+                self.event.synchronize()
+
+
 def probabilities(logits: torch.Tensor) -> torch.Tensor:
     """exp(log_softmax) over the last axis in fp32: the probabilities the
     reference's val_func_process takes (torch.exp of its log-softmax
@@ -118,6 +196,8 @@ class Evaluator:
                                   device=self.device)
         self._std = torch.tensor(image_std, dtype=torch.float32,
                                  device=self.device)
+        # two slots: a batch is written while the previous one's copies run
+        self._slots = [_Slot(self.device) for _ in range(2)]
 
     # ---- device programs ----
 
@@ -213,13 +293,14 @@ class Evaluator:
         item, this rank's rows of each.
 
         Spans (utils/profiling.py): the pass is the unit `eval.run`; each
-        batch's `eval.upload` (the samples stacked, the labels cast, the
-        images normalised on the device; counter `eval.upload_bytes`) with
-        its child `eval.copy` (both copies to the device: a pageable copy
-        also waits there for the device's queued work), `eval.forward` and
-        `eval.score`
-        (probabilities, argmax, counts); `eval.readback` (the counts summed
-        over ranks and read to the host, the score)."""
+        batch's `eval.upload` (the samples written into the batch's host
+        slot, the images normalised on the device; counters
+        `eval.upload_bytes`, `eval.upload_staged` a batch and
+        `eval.stage_wait` a wait on the slot) with its child `eval.copy`
+        (the copies to the device, and any wait for the slot's earlier
+        copies), `eval.forward` and `eval.score` (probabilities, argmax,
+        counts); `eval.readback` (the counts summed over ranks and read to
+        the host, the score)."""
         with profiling.span("eval.run"):
             return self._run(max_items)
 
@@ -235,30 +316,38 @@ class Evaluator:
         # the reference default, a single scale, runs on the device from the
         # uint8 images on; multi-scale resizes its inputs on the host
         fused = self.eval_scales == (1.0,)
+        ring = 0
         for i in range(rank * batch, n_total, batch * world):
             with profiling.span("eval.upload"):
                 idxs = list(range(i, min(i + batch, n_total)))
                 n_real = len(idxs)
                 idxs += [idxs[-1]] * (batch - n_real)
                 samples = [self.dataset[k] for k in idxs]
-                imgs = np.stack([s["data"] for s in samples])
-                labels = np.stack([s["label"] for s in samples]).astype(
-                    np.int32)
-                labels[n_real:] = self.ignore_label
-                labels = self._rows(labels)
+                height = samples[0]["data"].shape[0]
+                labels = [self._rows(s["label"][None])[0]
+                          for s in samples[:n_real]]
+                slot = self._slots[ring]
+                ring = (ring + 1) % len(self._slots)
+                slot.wait()
+                profiling.count("eval.upload_staged")
+                lab = slot.array("label", (batch, *labels[0].shape),
+                                 _label_dtype(np.result_type(*labels),
+                                             self.ignore_label))
+                _fill(lab, labels)
+                lab[n_real:] = self.ignore_label
                 if fused:
-                    rows = self._rows(imgs.astype(np.uint8))
-                with profiling.span("eval.copy"):
-                    lb = torch.from_numpy(labels).to(self.device)
-                    if fused:
-                        xb = torch.from_numpy(rows).to(self.device)
-                profiling.count("eval.upload_bytes", labels.nbytes)
-                if fused:
-                    profiling.count("eval.upload_bytes", rows.nbytes)
+                    rows = [self._rows(s["data"][None])[0] for s in samples]
+                    _fill(slot.array("data", (batch, *rows[0].shape),
+                                     np.uint8), rows)
+                    with profiling.span("eval.copy"):
+                        lb, xb = slot.send("label", "data")
                     x = (xb.float() / 255.0 - self._mean) / self._std
+                else:
+                    imgs = np.stack([s["data"] for s in samples])
+                    with profiling.span("eval.copy"):
+                        lb, = slot.send("label")
             if fused:
-                h, l, c = self._fused_eval(x, lb,
-                                           self._partition(imgs.shape[1]))
+                h, l, c = self._fused_eval(x, lb, self._partition(height))
             else:
                 wh = self._predict_whole(imgs)
                 with profiling.span("eval.score"):

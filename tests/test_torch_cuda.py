@@ -594,6 +594,61 @@ def test_evaluator_kernel_path_agrees_with_plain(cuda_device):
         assert diff <= 1e-4, diff
 
 
+# about 5 ms of the card a batch, against well under 1 ms of the host's
+SLEEP_CYCLES = 10_000_000
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_evaluator_staging_ring_waits_and_counts_exactly(cuda_device, batch):
+    """13 images through the evaluator's two staging slots behind a forward
+    that holds the card ~5 ms a batch (`torch.cuda._sleep`): the host runs
+    ahead until a slot's copies have not yet run, and waits for them
+    (`eval.stage_wait` > 0). The hist, correct and labeled counts equal,
+    bit for bit, those of the same forward synchronised after every batch,
+    which never waits: had a slot been rewritten before its copy ran, a
+    batch would have been counted with another's image or labels."""
+    from fasterseg_tpu_torch.eval import Evaluator
+    from fasterseg_tpu_torch.utils import profiling
+    gen = np.random.default_rng(batch)
+    n, hw = 19, (64, 128)
+    ds = []
+    for _ in range(13):
+        label = gen.integers(0, n, hw, dtype=np.uint8)
+        label[gen.random(hw) < 0.05] = 255
+        ds.append({"data": gen.integers(0, 256, (*hw, 3), dtype=np.uint8),
+                   "label": label})
+    m = torch.from_numpy(gen.standard_normal((3, n)).astype(np.float32)
+                         ).to(cuda_device)
+
+    def logits(x):            # elementwise: the same bits on every call
+        return x[..., 0:1] * m[0] + x[..., 1:2] * m[1] + x[..., 2:3] * m[2]
+
+    def slow(x):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return logits(x)
+
+    def synced(x):
+        y = logits(x)
+        torch.cuda.synchronize(cuda_device)
+        return y
+
+    results, waits = [], []
+    for fwd in (slow, synced):
+        ev = Evaluator(ds, n, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225),
+                       fwd, batch_size=batch, device=cuda_device)
+        profiling.reset()
+        with profiling.recording():
+            results.append(ev.run())
+        counters = profiling.summary()["counters"]
+        profiling.reset()
+        assert counters["eval.upload_staged"] == -(-len(ds) // batch)
+        waits.append(counters.get("eval.stage_wait", 0))
+    assert waits[0] > 0 and waits[1] == 0, waits
+    assert results[0].hist.sum() > 0
+    np.testing.assert_array_equal(results[0].hist, results[1].hist)
+    assert results[0].pixel_acc == results[1].pixel_acc
+
+
 def _one_step(net, teacher, x, y, device, dtype):
     """One student step of copies of `net` / `teacher` on `device`, from a
     fresh optimizer; returns the loss and the floating state."""

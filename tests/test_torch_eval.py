@@ -19,11 +19,13 @@ import fasterseg_tpu.eval.metrics as jm
 from fasterseg_tpu.data.procgen import ProcCity as JaxProcCity
 from fasterseg_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from fasterseg_tpu.ops import resize as jresize
+import fasterseg_tpu_torch.eval.evaluator as tev_mod
 import fasterseg_tpu_torch.eval.metrics as tm
 from fasterseg_tpu_torch.data.procgen import ProcCity
 from fasterseg_tpu_torch.eval import Evaluator
 from fasterseg_tpu_torch.models import InferenceRunner
 from fasterseg_tpu_torch.ops import resize as tresize
+from fasterseg_tpu_torch.utils import profiling
 from test_torch_weights import HW, _both
 
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -196,6 +198,102 @@ def test_single_scale_counts_equal_jax(flip, batch, n):
         one = _evaluators(ds, n, fwd, eval_flip=flip)[1].run()
         np.testing.assert_array_equal(got.hist, one.hist)
     assert str(got).startswith("mIoU ")
+
+
+def _unstaged_counts(ev, ds, batch):
+    """(hist, correct, labeled) of the single-scale upload without staging:
+    each batch's samples stacked, the images cast to uint8 and the labels
+    to int32, the padded tail's labels ignore, both copied with `.to`."""
+    hist, correct, labeled = 0, 0, 0
+    for i in range(0, len(ds), batch):
+        idxs = list(range(i, min(i + batch, len(ds))))
+        n_real = len(idxs)
+        idxs += [idxs[-1]] * (batch - n_real)
+        imgs = np.stack([ds[k]["data"] for k in idxs]).astype(np.uint8)
+        labels = np.stack([ds[k]["label"] for k in idxs]).astype(np.int32)
+        labels[n_real:] = ev.ignore_label
+        xb = torch.from_numpy(imgs).to(ev.device)
+        x = (xb.float() / 255.0 - ev._mean) / ev._std
+        h, l, c = ev._fused_eval(x, torch.from_numpy(labels).to(ev.device))
+        hist, correct, labeled = hist + h, correct + c, labeled + l
+    return hist.numpy(), int(correct), int(labeled)
+
+
+def _assert_unstaged_counts(got, ev, ds, batch):
+    hist, correct, labeled = _unstaged_counts(ev, ds, batch)
+    assert got.hist.dtype == np.int64
+    np.testing.assert_array_equal(got.hist, hist)
+    assert got.hist.sum() == labeled > 0
+    assert got.pixel_acc == correct / labeled
+
+
+# uint8 labels with 255 go up as they are, at batch 1 and with a padded
+# tail; int64 labels, and an ignore label that uint8 cannot hold, as int32
+@pytest.mark.parametrize("batch,dtype,ignore,sent", [
+    (1, np.uint8, 255, np.uint8), (2, np.uint8, 255, np.uint8),
+    (2, np.int64, 255, np.int32), (2, np.uint8, 300, np.int32)])
+def test_staged_upload_counts_equal_unstaged(monkeypatch, batch, dtype,
+                                             ignore, sent):
+    """Each batch written into a host slot, the labels in their own dtype
+    where the ignore label fits it: the same hist, correct and labeled
+    counts as stacking and casting; the labels reach the hist on the
+    forward's device in the dtype sent, and the bytes counted are those."""
+    n = 8
+    base = ProcCity(length=3, hw=(48, 96), seed=7, split="val")
+    ds = [{"data": base[i]["data"], "label": base[i]["label"].astype(dtype)}
+          for i in range(3)]
+    ev = Evaluator(ds, n, MEAN, STD, forward_fn=SharedForward(n).torch,
+                   batch_size=batch, ignore_label=ignore, device="cpu")
+    seen = []
+
+    def spy(pred, label, *args):
+        seen.append((label.dtype, label.device))
+        return tm.hist_stats(pred, label, *args)
+
+    monkeypatch.setattr(tev_mod, "hist_stats", spy)
+    with profiling.recording():
+        got = ev.run()
+    counters = profiling.summary()["counters"]
+    profiling.reset()
+    batches = -(-len(ds) // batch)
+    want = torch.from_numpy(np.empty(0, sent)).dtype
+    assert seen == [(want, torch.device("cpu"))] * batches
+    assert tev_mod._label_dtype(dtype, ignore) == sent
+    assert counters["eval.upload_staged"] == batches
+    assert counters["eval.upload_bytes"] == (
+        batches * batch * 48 * 96 * (3 + np.dtype(sent).itemsize))
+    _assert_unstaged_counts(got, ev, ds, batch)
+
+
+def test_staging_slot_follows_the_image_shape():
+    """Batches of another image size re-allocate their slot's arrays, and
+    a slot reuses its arrays while the size holds; the counts equal the
+    unstaged upload's. A batch mixing sizes is refused, as stacking would
+    refuse it."""
+    n = 8
+    big = ProcCity(length=4, hw=(48, 96), seed=8, split="val")
+    small = ProcCity(length=2, hw=(32, 64), seed=9, split="val")
+    ds = [big[0], big[1], small[0], small[1], big[2], big[3]]
+    fwd = SharedForward(n)
+    staged = []
+
+    def forward(x):
+        staged.append([slot.host["data"][1] for slot in ev._slots
+                       if "data" in slot.host])
+        return fwd.torch(x)
+
+    ev = Evaluator(ds, n, MEAN, STD, forward_fn=forward, batch_size=2,
+                   device="cpu")
+    got = ev.run()
+    # batches: big (slot 0), small (slot 1), big (slot 0 again)
+    assert [a.shape for a in staged[1]] == [(2, 48, 96, 3), (2, 32, 64, 3)]
+    assert staged[2][0] is staged[0][0]
+    assert staged[2][1] is staged[1][1]
+    _assert_unstaged_counts(got, ev, ds, 2)
+    mixed = Evaluator([big[0], small[0]], n, MEAN, STD, forward_fn=forward,
+                      batch_size=2, device="cpu")
+    with pytest.raises(ValueError, match="mixes the shapes"):
+        mixed.run()
 
 
 def _jax_multiscale_probs(jev, imgs):

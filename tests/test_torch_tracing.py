@@ -275,10 +275,13 @@ def test_evaluator_run_records_its_stages_and_upload_bytes(runner, batch):
         s["eval.upload"]["total_ms"] - s["eval.copy"]["total_ms"])
     forwards = {r.id for r in unit if r.name == "eval.forward"}
     assert {r.parent for r in unit if r.name == "infer.logits"} == forwards
-    # the padded tail is uploaded too: every batch holds `batch` images
-    per_image = HW[0] * HW[1] * (3 * 1 + 4)    # uint8 image, int32 label
+    # the padded tail is uploaded too: every batch holds `batch` images;
+    # each batch staged once; on the CPU no copy is pending, so no
+    # `eval.stage_wait`
+    per_image = HW[0] * HW[1] * (3 + 1)    # uint8 image, uint8 label
     assert profiling.summary()["counters"] == {
-        "eval.upload_bytes": batches * batch * per_image}
+        "eval.upload_bytes": batches * batch * per_image,
+        "eval.upload_staged": batches}
     assert res.hist.sum() > 0
 
 
