@@ -990,7 +990,6 @@ def _agreement(name: str, plan, net, x, cm) -> dict:
 def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
     import torch
     from fasterseg_tpu_torch import kernels
-    from fasterseg_tpu_torch.latency.measure import call_ms
     from fasterseg_tpu_torch.models import DerivedNet, InferenceRunner
     from fasterseg_tpu_torch.utils import init_random_
     plan = plan_fn()
@@ -1028,17 +1027,9 @@ def _serve(name: str, plan_fn, seed: int, timed: bool) -> dict:
     if timed:
         for what, fn in (("logits", lambda: runner.logits(x)),
                          ("classmap", lambda: runner.classmap(x))):
-            t = call_ms(fn)
-            row[f"{what}_ms"] = t
-            row[f"{what}_fps"] = 1e3 / t["median"]
-            # the same forward captured once as a CUDA graph and replayed:
-            # the device's time without the host issuing ~180 launches
+            # the forward captured once as a CUDA graph and replayed: the
+            # device's time without the host issuing ~180 launches
             row[f"graph_{what}_ms"] = graph_ms(fn, reps=1)
-        plain16 = InferenceRunner(plan, net, dtype=torch.bfloat16,
-                                  device=DEVICE, fast_stem_enabled=False)
-        row["plain_bf16_classmap_ms"] = call_ms(lambda: plain16.classmap(x),
-                                                reps=5)
-        del plain16
         row["graph_logits_fp32_ms"] = _fp32_logits_ms(plan, net, x)
         row["classmap_device"] = device_breakdown(lambda: runner.classmap(x))
         row["gpu"] = gpu_line()
@@ -1093,7 +1084,6 @@ def phase_eval(seed: int) -> dict:
     from fasterseg_tpu_torch.data.preprocess import _resize, eval_preprocess
     from fasterseg_tpu_torch.eval import (Evaluator, confusion_hist,
                                           probabilities)
-    from fasterseg_tpu_torch.latency.measure import call_ms
     from fasterseg_tpu_torch.models import (DerivedNet, InferenceRunner,
                                             student_plan)
     from fasterseg_tpu_torch.utils import init_random_
@@ -1137,20 +1127,14 @@ def phase_eval(seed: int) -> dict:
             for k in ("conv3x3_bn_relu_s1", "conv3x3_bn_relu_s2"):
                 check(launches[k] > 0, f"eval: kernel {k} was not launched")
             row["launches"] = launches
-            # image 0: its hist on the card against numpy's on the host, and
-            # its time split into the forward alone and the fp32
-            # probabilities + argmax + hist on the forward's logits
+            # image 0: its hist on the card against numpy's on the host
             x = torch.from_numpy(eval_preprocess(
                 ds[0]["data"], data.image_mean, data.image_std)[None]
             ).to(DEVICE)
             lab = torch.from_numpy(labels[:1].astype(np.int32)).to(DEVICE)
             logits = r.logits(x)
-
-            def hist0():
-                pred = torch.argmax(probabilities(logits), -1).int()
-                return pred, confusion_hist(pred, lab, n, data.ignore_label)
-
-            pred, on_card = hist0()
+            pred = torch.argmax(probabilities(logits), -1).int()
+            on_card = confusion_hist(pred, lab, n, data.ignore_label)
             p, l = pred.cpu().numpy().astype(np.int64), labels[:1].astype(
                 np.int64)
             valid = (l != data.ignore_label) & (l < n)
@@ -1158,17 +1142,6 @@ def phase_eval(seed: int) -> dict:
                                   minlength=n * n).reshape(n, n)
             check(torch.equal(on_card.cpu(), torch.from_numpy(on_host)),
                   "eval: the card's hist of image 0 differs from numpy's")
-            def upload():
-                # what run() sends the card an image: uint8 image, int32
-                # labels, from pageable host memory
-                return (torch.from_numpy(ds[0]["data"][None]).to(DEVICE),
-                        torch.from_numpy(labels[:1].astype(np.int32))
-                        .to(DEVICE))
-
-            row["k16_run_one_ms"] = call_ms(lambda: ev.run(max_items=1))
-            row["k16_upload_ms"] = call_ms(upload)
-            row["k16_forward_ms"] = call_ms(lambda: r.logits(x))
-            row["k16_probs_argmax_hist_ms"] = call_ms(hist0)
             del logits, x, pred
         elif name == "K32":
             # every fp32 conv on the stem kernel or the 3xTF32 route
@@ -1356,15 +1329,14 @@ def _count_copies_probe(labels) -> dict:
     several numbers of private copies of the bins; every count equal."""
     import torch
     from fasterseg_tpu_torch.eval import metrics
-    from fasterseg_tpu_torch.latency.measure import call_ms
     idx = (labels.long() + 1).clamp(0, 19).reshape(-1)
     want = metrics._bincount(idx, 20, 1)
     out = {"values": idx.numel(), "chosen": metrics.COUNT_COPIES}
     for copies in (1, 8, 64, 512, 4096):
         check(torch.equal(metrics._bincount(idx, 20, copies), want),
               f"counts with {copies} copies differ")
-        out[str(copies)] = call_ms(lambda: metrics._bincount(idx, 20,
-                                                             copies))["median"]
+        out[str(copies)] = graph_ms(lambda: metrics._bincount(idx, 20,
+                                                              copies))
     return out
 
 

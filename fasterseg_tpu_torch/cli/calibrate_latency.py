@@ -114,7 +114,7 @@ def main(argv=None):
     from ..latency import LatencyLUT, derived_latency_ms, fps_band
     from ..latency.measure import graph_slope_ms
     from ..models import DerivedNet, InferenceRunner, student_plan
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     from ..utils.weights import init_random_
 
     lut = LatencyLUT(args.lut)        # no provider: a missing key raises

@@ -226,7 +226,7 @@ def main(argv=None):
                         "versions of the kernels)")
     args = p.parse_args(argv)
 
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     device = resolve_device(args.device)
     plan, net = load_student(args.ckpt)
     res = check(plan, net, render(N_VAL, "val"), device)[0]

@@ -40,7 +40,7 @@ def main(argv=None):
 
     from ..models import (DerivedNet, InferenceRunner, student_plan,
                           teacher_plan)
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     from ..utils.flops import param_count, plan_flops
     from ..utils.profiling import serving_segments, trace
     from ..utils.weights import init_random_

@@ -62,7 +62,7 @@ def main(argv=None):
     from ..core.plan import build_plan, select_lasts
     from ..latency.measure import graph_slope_ms, measured_provider, time_fn
     from ..models import _ASSETS, DerivedNet, InferenceRunner
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     from ..train.driver import load_arch_any
     from ..utils.weights import init_random_
 

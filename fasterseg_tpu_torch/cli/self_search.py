@@ -117,7 +117,7 @@ def lut(setup: Setup):
     model elsewhere, and kept in memory."""
     from ..latency import H100CostModel, LatencyLUT
     from ..latency.lut import H100_LUT
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     device = resolve_device(setup.device)
     if device.type == "cuda":
         from ..latency.measure import measured_provider
@@ -318,7 +318,7 @@ def stage_fps(setup: Setup) -> Dict:
     from ..latency import derived_latency_ms
     from ..latency.measure import graph_slope_ms
     from ..models import DerivedNet, InferenceRunner
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     from ..utils.weights import init_jax_draw_
     from .miou_study import gpu_line
     device = resolve_device(setup.device)

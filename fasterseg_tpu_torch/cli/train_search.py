@@ -94,7 +94,7 @@ def _run(args, save_dir: str, mesh=None):
     from ..data import Cityscapes, DataSetting
     from ..latency import LatencyLUT, fps_band, reference_lut
     from ..models import student_plan
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     from ..search import run_search
     from ..utils.logging import get_logger
 

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from ..data.preprocess import _resize, eval_preprocess, pad_image_to_shape
-from ..models.infer import resolve_device
+from ..kernels import resolve_device
 from ..ops.resize import (in_float64, resize_bilinear_halfpixel,
                           resize_bilinear_halfpixel_rows)
 from ..parallel.spatial import Block, Exchange, partition

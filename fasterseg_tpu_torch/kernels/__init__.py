@@ -1,14 +1,29 @@
 """Hand-written CUDA kernels of the serving path and their plain versions.
 
 A wrapper runs its CUDA kernel for CUDA tensors and its plain PyTorch
-version only for CPU tensors. Each counts its kernel launches.
+version only for CPU tensors. Each counts its kernel launches. Entry points
+pick their device by the same rule (`resolve_device`).
 """
+
+from typing import Union
+
+import torch
 
 from . import conv, fused, resize
 from .conv import (ConvWeights, conv3x3_bn_relu, conv3x3_bn_relu_plain, fold_bn,
                    input_parts, round_tf32, split_weights, unpack_weights)
 from .fused import upsample8_argmax, upsample8_argmax_plain
 from .resize import resize_bilinear, resize_bilinear_plain
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device an entry point runs on; CUDA must be present when asked
+    for (the default), the CPU is used only when the caller names it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain versions on the CPU")
+    return device
 
 
 def launch_counts() -> dict:

@@ -122,7 +122,7 @@ class H100CostModel:
         error): a failed build, launch or measurement raises, and so does a
         reading that the memory roofline alone cannot explain."""
         from ..kernels.conv import conv3x3_bn_relu, split_weights
-        from ..models.infer import resolve_device
+        from ..kernels import resolve_device
         from .measure import graph_slope_ms
         device = resolve_device(device)
         model = cls()

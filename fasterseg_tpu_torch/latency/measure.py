@@ -5,8 +5,7 @@ counterpart of the reference's TensorRT timers (tools/utils/darts_utils.py:
 96-223) and measure-on-miss (search/operations.py:115-123).
 
 * `time_fn` times calls issued one after another by the host, as a caller
-  sees them (`time_jitted` / `measure_apply_ms`); `call_ms` times single
-  calls so, and gives their median, min and max.
+  sees them (`time_jitted` / `measure_apply_ms`).
 * `graph_slope_ms` times the device alone: CUDA graphs of n1 and n2 calls,
   replayed under CUDA events; the slope per call removes the replay's fixed
   cost (`slope_time_ms` / `chained_slope_ms`).
@@ -29,10 +28,10 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from ..kernels import resolve_device
 from ..kernels.conv import conv3x3_bn_relu
-from ..models.fast_body import (_conv1x1, _fold_cell, _run_cell, fold1x1,
-                                fold3x3)
-from ..models.infer import _to, resolve_device
+from ..models.fast_body import (conv1x1, fold1x1, fold3x3, fold_cell,
+                                run_cell, to_device)
 from ..ops.conv import ConvNorm
 from ..ops.primitives import make_op
 from ..ops.seg_heads import FeatureFusion, Head
@@ -80,31 +79,6 @@ def time_fn(fn: Callable[[], object], warmup: int = 10,
         per_call = elapsed_ms / done
         batch = max(10, min(int((min_seconds * 1e3 - elapsed_ms) / per_call)
                             + 1, max_iters - done))
-
-
-def call_ms(fn: Callable[[], object], reps: int = 7,
-            device: Device = "cuda") -> dict:
-    """Milliseconds of single calls of `fn` with the host in the loop
-    (serving as a caller sees it): after 2 warm-up calls, CUDA events
-    around each of `reps` calls (a wall clock on the CPU). The per-call
-    counterpart of `time_fn`: {"median", "min", "max", "reps"}."""
-    device = resolve_device(device)
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            times.append(_wall_ms(fn, 1))
-    return {"median": statistics.median(times), "min": min(times),
-            "max": max(times), "reps": reps}
 
 
 def _graph_of(fn: Callable[[], object], n: int, pool=None):
@@ -246,24 +220,25 @@ def serving_route(op: KeyOp, device: Device = "cuda",
     if m is None:
         return None
     if op.kind == "op":
-        p = _to(_fold_cell(m, dtype), device)
+        p = to_device(fold_cell(m, dtype), device)
         idx, stride = op.index, op.stride
-        return lambda x: _run_cell(idx, x, p, stride)
+        return lambda x: run_cell(idx, x, p, stride)
     if op.kind == "ConvNorm":
         conv, bn = m.conv[0], m.conv[1]
         if op.kernel == 1:
-            p1 = _to(fold1x1(conv, bn), device)
-            return lambda x: _conv1x1(x, p1)
-        p3 = _to(fold3x3(conv, bn, dtype=dtype), device)
+            p1 = to_device(fold1x1(conv, bn), device)
+            return lambda x: conv1x1(x, p1)
+        p3 = to_device(fold3x3(conv, bn, dtype=dtype), device)
         stride = op.stride
         return lambda x: conv3x3_bn_relu(x, *p3, stride=stride)
     if op.kind == "ff":
-        p1 = _to(fold1x1(m.conv_1x1.conv, m.conv_1x1.bn), device)
-        return lambda x: _conv1x1(x, p1)
+        p1 = to_device(fold1x1(m.conv_1x1.conv, m.conv_1x1.bn), device)
+        return lambda x: conv1x1(x, p1)
     if op.kind == "head":
-        p3 = _to(fold3x3(m.conv_3x3.conv, m.conv_3x3.bn, dtype=dtype), device)
-        cls = _to(fold1x1(m.conv_1x1, None), device)
-        return lambda x: _conv1x1(conv3x3_bn_relu(x, *p3), cls, relu=False)
+        p3 = to_device(fold3x3(m.conv_3x3.conv, m.conv_3x3.bn, dtype=dtype),
+                       device)
+        cls = to_device(fold1x1(m.conv_1x1, None), device)
+        return lambda x: conv1x1(conv3x3_bn_relu(x, *p3), cls, relu=False)
     raise KeyError(op.kind)
 
 

@@ -20,7 +20,7 @@ eval weights once and runs the hand-written kernels.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -129,19 +129,16 @@ class DerivedNet(nn.Module):
             self.heads32 = Head(sum(pred32_ch), plan.num_classes)
         self.eval()
 
-    def forward(self, x: torch.Tensor, stem_out: Optional[torch.Tensor] = None,
-                upsample: bool = True):
+    def forward(self, x: torch.Tensor, upsample: bool = True):
         """Eval mode: logits (N, H, W, classes), or at 1/8 resolution with
-        `upsample=False`. `stem_out` (optional): stem features computed
-        elsewhere (the kernel stem of models/infer.py), bypassing
-        `self.stem`.
+        `upsample=False`.
 
         Training mode: (p8, p16, p32), the head's and the aux heads' logits
         upsampled in fp32 to the input resolution (x8, x16, x32); p16 / p32
         are None where the plan has no such head."""
         plan = self.plan
         B = plan.num_branch
-        stem = self.stem(x) if stem_out is None else stem_out
+        stem = self.stem(x)
 
         outputs = [stem] * B
         by_scale: Dict[int, List[torch.Tensor]] = {

@@ -87,7 +87,9 @@ def fold1x1(conv: Conv, bn: Optional[BatchNorm]) -> Folded1x1:
     return _w1x1(conv), scale.detach(), bias.detach()
 
 
-def _fold_cell(op: torch.nn.Module, dtype: torch.dtype = torch.bfloat16) -> Dict:
+def fold_cell(op: torch.nn.Module, dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """One decoded cell's folded weights for `run_cell`; with it, the unit
+    the latency LUT prices (latency/measure.serving_route)."""
     if isinstance(op, FactorizedReduce):
         if op.stride == 1:                           # identity skip
             return {}
@@ -109,7 +111,7 @@ def fold_weights(net: DerivedNet, dtype: torch.dtype = torch.bfloat16) -> Dict:
         stem += [fold3x3(stage.conv1, stage.bn1, dtype=dtype),
                  fold3x3(stage.conv2, stage.bn2, dtype=dtype)]
     fw = {"stem": stem,
-          "cells": {k: _fold_cell(c._op._op, dtype)
+          "cells": {k: fold_cell(c._op._op, dtype)
                     for k, c in net.cells.items()},
           "ffm": fold1x1(net.ffm.conv_1x1.conv, net.ffm.conv_1x1.bn),
           "head3": fold3x3(net.heads8.conv_3x3.conv, net.heads8.conv_3x3.bn,
@@ -126,6 +128,20 @@ def fold_weights(net: DerivedNet, dtype: torch.dtype = torch.bfloat16) -> Dict:
         fw["refines16"] = fold3x3(net.refines16.conv[0], net.refines16.conv[1],
                                   fw["arms16"][0].shape[1], dtype)
     return fw
+
+
+def to_device(tree, device):
+    """A tree of folded weights (dicts, lists, tuples of tensors and
+    `ConvWeights`) moved to `device`, its tensors contiguous there."""
+    if isinstance(tree, ConvWeights):
+        return tree.to(device)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device).contiguous()
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree
 
 
 def row_multiple(plan: NetworkPlan) -> int:
@@ -196,9 +212,10 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(acc), w.to(acc))
 
 
-def _conv1x1(x: torch.Tensor, p: Folded1x1, relu: bool = True) -> torch.Tensor:
+def conv1x1(x: torch.Tensor, p: Folded1x1, relu: bool = True) -> torch.Tensor:
     """1x1 conv + folded BN (+ReLU): a product over channels (`_product`)
-    and its epilogue, rounded once to x's dtype."""
+    and its epilogue, rounded once to x's dtype. The unit the latency LUT
+    prices for a 1x1 ConvNorm, the FFM's and the head's classifier."""
     w, scale, bias = p
     return _epilogue(_product(x, w), scale, bias, relu, x.dtype)
 
@@ -219,9 +236,10 @@ def _factorized_reduce(x, p):
     return _epilogue(y, scale, bias, True, x.dtype)
 
 
-def _run_cell(op: int, x, p: Dict, stride: int):
+def run_cell(op: int, x, p: Dict, stride: int):
     """One decoded cell (ops/primitives.py classes) on an NHWC input (or a
-    Block of one)."""
+    Block of one), on `fold_cell`'s weights: the unit the latency LUT
+    prices for a cell's op."""
     if op == 0:
         return x if stride == 1 else _factorized_reduce(x, p)
     if op == 1:    # conv
@@ -262,8 +280,8 @@ def fast_body(plan: NetworkPlan, fw: Dict, stem):
             for group in groups:
                 spec = specs[(layer, group[0])]
                 stride = 2 if spec.down else 1
-                out = _run_cell(spec.op, outputs[group[0]],
-                                fw["cells"][cell_key(layer, group[0])], stride)
+                out = run_cell(spec.op, outputs[group[0]],
+                               fw["cells"][cell_key(layer, group[0])], stride)
                 for b in group:
                     outputs[b] = out
                     by_scale[spec.scale * stride][b] = out
@@ -275,14 +293,14 @@ def fast_body(plan: NetworkPlan, fw: Dict, stem):
             o8 = by_scale[8][b]
             if last == 2:
                 o16 = by_scale[16][b]
-                out = _local(_conv1x1, by_scale[32][b], fw["arms32"][0])
+                out = _local(conv1x1, by_scale[32][b], fw["arms32"][0])
                 out = _refine_3x3(_resize_to(out, o16), o16,
                                   fw["refines32"][0])
-                out = _local(_conv1x1, out, fw["arms32"][1])
+                out = _local(conv1x1, out, fw["arms32"][1])
                 pred8.append(_refine_3x3(_resize_to(out, o8), o8,
                                          fw["refines32"][1]))
             elif last == 1:
-                out = _local(_conv1x1, by_scale[16][b], fw["arms16"])
+                out = _local(conv1x1, by_scale[16][b], fw["arms16"])
                 pred8.append(_refine_3x3(_resize_to(out, o8), o8,
                                          fw["refines16"]))
             else:
@@ -290,7 +308,7 @@ def fast_body(plan: NetworkPlan, fw: Dict, stem):
 
     with profiling.span("infer.head"):
         # FFM: 1x1 ConvBnRelu over the branch concat (seg_oprs.py:181-225)
-        y = _local(_conv1x1, _cat(pred8), fw["ffm"])
+        y = _local(conv1x1, _cat(pred8), fw["ffm"])
         # Head: 3x3 ConvBnRelu -> biased 1x1 to classes (seg_oprs.py:228-274)
         y = conv3x3(y, fw["head3"])
-        return _local(_conv1x1, y, fw["cls"], relu=False)
+        return _local(conv1x1, y, fw["cls"], relu=False)

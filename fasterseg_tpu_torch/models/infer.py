@@ -19,7 +19,7 @@ from typing import Dict, Sequence, Union
 import torch
 
 from ..core.plan import NetworkPlan
-from ..kernels.conv import ConvWeights
+from ..kernels import resolve_device
 from ..kernels.fused import upsample8_argmax, upsample8_argmax_plain
 from ..kernels.resize import resize_bilinear
 from ..ops.conv import Conv
@@ -27,7 +27,8 @@ from ..ops.resize import in_float64, scale_by, scale_by_rows
 from ..parallel.spatial import Block
 from ..utils import profiling
 from .derived import DerivedNet
-from .fast_body import Folded3x3, conv3x3, fast_body, fold_weights, row_multiple
+from .fast_body import (Folded3x3, conv3x3, fast_body, fold_weights,
+                        row_multiple, to_device)
 
 
 def fast_stem(stem: Sequence[Folded3x3], x):
@@ -42,16 +43,6 @@ def fast_stem(stem: Sequence[Folded3x3], x):
     return y
 
 
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device an entry point runs on; CUDA must be present when asked
-    for (the default), the CPU is used only when the caller names it."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain versions on the CPU")
-    return device
-
-
 class InferenceRunner:
     """Eval-mode forwards of a derived network.
 
@@ -64,11 +55,9 @@ class InferenceRunner:
     x is (1, H, W, 3) NHWC. `.logits` also takes this rank's
     `parallel.spatial.Block` of an image split over H (blocks starting at
     multiples of `row_multiple` input rows) and returns its Block of the
-    logits; the kernel path only. `fast_body_enabled=False` runs the kernel stem
-    and the plain body of `net`; `fast_stem_enabled=False` runs `net`
-    alone, plain throughout (its class map too), which makes it the
-    reference the kernel path is held against. BN folding and weight
-    casting happen here, once.
+    logits; the kernel path only. `fast_stem_enabled=False` means the plain
+    network throughout (`net`, its class map too): the reference the kernel
+    path is held against. BN folding and weight casting happen here, once.
 
     Each call is one unit span, `infer.classmap` or `infer.logits`, over the
     stage spans `infer.stem`, fast_body's `infer.cells`, `infer.aggregate`
@@ -78,18 +67,16 @@ class InferenceRunner:
     def __init__(self, plan: NetworkPlan, net: DerivedNet,
                  dtype: torch.dtype = torch.bfloat16,
                  device: Union[str, torch.device] = "cuda",
-                 fast_stem_enabled: bool = True,
-                 fast_body_enabled: bool = True):
+                 fast_stem_enabled: bool = True):
         self.plan = plan
         self.dtype = dtype
         self.device = resolve_device(device)
         self.fast_stem_enabled = fast_stem_enabled
-        self.fast_body_enabled = fast_body_enabled and fast_stem_enabled
         self.folded: Dict = {}
         self.net = None
         if fast_stem_enabled:
-            self.folded = _to(fold_weights(net, dtype), self.device)
-        if not self.fast_body_enabled:
+            self.folded = to_device(fold_weights(net, dtype), self.device)
+        else:
             # the plain network: convs in the compute dtype, BN in fp32
             self.net = copy.deepcopy(net).to(self.device).eval()
             for m in self.net.modules():
@@ -106,21 +93,18 @@ class InferenceRunner:
     def p8(self, x):
         """1/8-resolution logits (1, H/8, W/8, classes)."""
         if isinstance(x, Block):
-            if not self.fast_body_enabled:
+            if not self.fast_stem_enabled:
                 raise ValueError("a Block (an image split over H) runs the "
                                  "kernel path only")
-            t = x.t.to(device=self.device, dtype=self.dtype).contiguous()
-            with profiling.span("infer.stem"):
-                stem = fast_stem(self.folded["stem"], x.like(t))
-            return fast_body(self.plan, self.folded, stem)
-        x = x.to(device=self.device, dtype=self.dtype).contiguous()
-        if not self.fast_stem_enabled:
-            return self.net(x, upsample=False)
+            x = x.like(x.t.to(device=self.device, dtype=self.dtype)
+                       .contiguous())
+        else:
+            x = x.to(device=self.device, dtype=self.dtype).contiguous()
+            if not self.fast_stem_enabled:
+                return self.net(x, upsample=False)
         with profiling.span("infer.stem"):
             stem = fast_stem(self.folded["stem"], x)
-        if self.fast_body_enabled:
-            return fast_body(self.plan, self.folded, stem)
-        return self.net(x, stem_out=stem, upsample=False)
+        return fast_body(self.plan, self.folded, stem)
 
     @torch.inference_mode()
     def logits(self, x):
@@ -143,15 +127,3 @@ class InferenceRunner:
                 if not self.fast_stem_enabled:
                     return upsample8_argmax_plain(p8, out_hw)
                 return upsample8_argmax(p8, out_hw)
-
-
-def _to(tree, device):
-    if isinstance(tree, ConvWeights):
-        return tree.to(device)
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device).contiguous()
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to(v, device) for v in tree)
-    return tree

@@ -112,8 +112,7 @@ class QuantizedRunner(InferenceRunner):
     def __init__(self, plan: NetworkPlan, qvars: Mapping,
                  dtype: torch.dtype = torch.bfloat16,
                  device: Union[str, torch.device] = "cuda",
-                 fast_stem_enabled: bool = True,
-                 fast_body_enabled: bool = True):
+                 fast_stem_enabled: bool = True):
         sd = dequantize_params(qvars["params_q"], qvars["params_scale"],
                                dtype)
         # bf16 weights held exactly in the net's fp32
@@ -121,21 +120,18 @@ class QuantizedRunner(InferenceRunner):
         load_reference_state_dict(net, {k: v.float() if v.is_floating_point()
                                         else v for k, v in sd.items()})
         super().__init__(plan, net, dtype=dtype, device=device,
-                         fast_stem_enabled=fast_stem_enabled,
-                         fast_body_enabled=fast_body_enabled)
+                         fast_stem_enabled=fast_stem_enabled)
 
 
 def quantize_variables(plan: NetworkPlan, net: DerivedNet,
                        dtype: torch.dtype = torch.bfloat16,
                        device: Union[str, torch.device] = "cuda",
-                       fast_stem_enabled: bool = True,
-                       fast_body_enabled: bool = True
+                       fast_stem_enabled: bool = True
                        ) -> Tuple[Dict, QuantizedRunner]:
     """`net`'s weights -> (int8 qvars, QuantizedRunner)."""
     q, scales = quantize_params(net.state_dict(),
                                 num_classes=plan.num_classes)
     qvars = {"params_q": q, "params_scale": scales}
     return qvars, QuantizedRunner(plan, qvars, dtype=dtype, device=device,
-                                  fast_stem_enabled=fast_stem_enabled,
-                                  fast_body_enabled=fast_body_enabled)
+                                  fast_stem_enabled=fast_stem_enabled)
 

@@ -61,7 +61,7 @@ from ..data.preprocess import eval_preprocess
 from ..eval.metrics import compute_score, confusion_hist
 from ..latency import (LatencyLUT, build_supernet_tables, derived_latency_ms,
                        reference_lut, stem_latency_ms)
-from ..models.infer import resolve_device
+from ..kernels import resolve_device
 from ..models.supernet import ArchParamSet, Supernet, init_supernet
 from ..parallel.mesh import replicate, sync_batchnorm_
 from ..train.loop import (clip_by_global_norm_, make_optimizer,

@@ -40,7 +40,7 @@ from ..data.preprocess import eval_preprocess
 from ..eval.evaluator import EvalResult, Evaluator
 from ..eval.metrics import SegMetrics
 from ..models import DerivedNet, InferenceRunner
-from ..models.infer import resolve_device
+from ..kernels import resolve_device
 from ..parallel.mesh import replicate
 from ..utils import profiling
 from ..utils.checkpoint import PartialLoad, load, partial_load, save

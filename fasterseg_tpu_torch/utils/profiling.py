@@ -232,7 +232,7 @@ def trace(logdir: str, device: Union[str, torch.device] = "cuda"
     """Profile the body of the `with` (host calls and the program's spans,
     and the card's kernels and copies where `device` is a card) and write it
     as a Chrome trace `trace_<pid>.json` under `logdir`."""
-    from ..models.infer import resolve_device
+    from ..kernels import resolve_device
     device = resolve_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -257,8 +257,9 @@ def serving_segments(plan: "NetworkPlan", net: torch.nn.Module,
     head), `logits_ms`, `classmap_ms`, and the derived `body_agg_ms` (p8 -
     stem), `upsample_ms` (logits - p8) and `classmap_head_ms` (classmap -
     p8), with both FPS. Every timed stage returns one tensor. Unrounded."""
+    from ..kernels import resolve_device
     from ..latency.measure import graph_slope_ms
-    from ..models.infer import InferenceRunner, fast_stem, resolve_device
+    from ..models.infer import InferenceRunner, fast_stem
     device = resolve_device(device)
     runner = InferenceRunner(plan, net, dtype=dtype, device=device)
     if x is None:

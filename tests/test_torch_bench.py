@@ -36,8 +36,7 @@ BENCH_KEYS = {"metric": str, "value": float, "unit": str,
 INT8_KEYS = {"int8_fps": float, "int8_spread_pct": float,
              "int8_serving_path": str}
 PORT_KEYS = {"gpu": str, "hw": list, "dtype": str, "logits_ms": float,
-             "classmap_ms": float, "int8_ms": float, "logits_call_ms": dict,
-             "classmap_call_ms": dict, "launches": dict,
+             "classmap_ms": float, "int8_ms": float, "launches": dict,
              "launches_by_route": dict, "baseline": str}
 
 
@@ -90,9 +89,6 @@ def test_main_prints_bench_keys_and_the_ports(capsys):
     for k in ("value", "classmap_fps", "int8_fps", "spread_pct",
               "classmap_spread_pct", "int8_spread_pct"):
         assert math.isfinite(line[k]) and line[k] >= 0, k
-    for k in ("logits_call_ms", "classmap_call_ms"):
-        c = line[k]
-        assert c["reps"] == 7 and 0 < c["min"] <= c["median"] <= c["max"]
     assert line["gpu"] == "cpu" and line["hw"] == list(HW)
     assert line["dtype"] == "bfloat16"
     # the plain versions on the CPU launch no kernel
@@ -147,7 +143,7 @@ def test_fast_body_failure_fails_the_bench(capsys, monkeypatch):
 
 def test_int8_failure_fails_the_bench(capsys, monkeypatch):
     """Quantization raising after the bf16 timings fails the run; the int8
-    leg was asked for on the bench's own path (here the plain body)."""
+    leg was asked for once, on the default (kernel) path."""
     asked = []
 
     def boom(*args, **kwargs):
@@ -156,12 +152,12 @@ def test_int8_failure_fails_the_bench(capsys, monkeypatch):
 
     monkeypatch.setattr(bench, "quantize_variables", boom)
     with pytest.raises(RuntimeError, match="planted failure"):
-        bench.main(CPU + ["--no-fast-body"])
+        bench.main(CPU)
     _no_json(capsys.readouterr().out)
-    assert [a["fast_body_enabled"] for a in asked] == [False]
+    assert asked == [{"device": torch.device("cpu")}]
 
 
-def test_no_int8_and_no_fast_body(capsys, monkeypatch):
+def test_no_int8(capsys, monkeypatch):
     made = []
 
     class Spy(bench.InferenceRunner):
@@ -171,13 +167,12 @@ def test_no_int8_and_no_fast_body(capsys, monkeypatch):
 
     monkeypatch.setattr(bench, "InferenceRunner", Spy)
     monkeypatch.setattr(bench, "quantize_variables", _boom)
-    bench.main(CPU + ["--no-int8", "--no-fast-body"])
+    bench.main(CPU + ["--no-int8"])
     line = _last_json(capsys.readouterr().out)
     assert not set(INT8_KEYS) & set(line) and "int8_ms" not in line
     assert "int8_error" not in line
-    assert line["serving_path"] == "fast_stem_plain_body"
-    assert [(r.fast_stem_enabled, r.fast_body_enabled) for r in made] == [
-        (True, False)]
+    assert line["serving_path"] == "fast_body"
+    assert [r.fast_stem_enabled for r in made] == [True]
 
 
 def test_default_device_raises_without_cuda():

@@ -840,18 +840,26 @@ def test_bench_on_card_launches_every_kernel(cuda_device):
     assert line["gpu"] == card_line()
 
 
-def test_bench_plain_body_on_card_launches_fewer_convs(cuda_device):
-    """`--no-fast-body`: the kernel stem and the plain body, so fewer conv
-    launches than the fast body's and the same upsample."""
+def test_plain_reference_on_card_launches_no_kernel(cuda_device):
+    """`fast_stem_enabled=False` on the bench's net: the plain network
+    throughout, so its `.logits` and `.classmap` launch no kernel on the
+    card, where the bench's runner launches every one."""
     from fasterseg_tpu_torch.cli import bench
-    fast = bench.run_bench((256, 512), cuda_device, int8=False)
-    plain = bench.run_bench((256, 512), cuda_device, int8=False,
-                            fast_body=False)
-    assert plain["serving_path"] == "fast_stem_plain_body"
-    conv = lambda c: c["conv3x3_bn_relu_s1"] + c["conv3x3_bn_relu_s2"]
-    assert 0 < conv(plain["launches"]) < conv(fast["launches"])
-    assert (plain["launches"]["upsample8_argmax"]
-            == fast["launches"]["upsample8_argmax"] == 1)
+    from fasterseg_tpu_torch.models import InferenceRunner
+    plan, net, runner, x = bench.build((256, 512), cuda_device)
+    plain = InferenceRunner(plan, net, device=cuda_device,
+                            fast_stem_enabled=False)
+    counts = []
+    for r in (plain, runner):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        r.logits(x)
+        cm = r.classmap(x)
+        torch.cuda.synchronize()
+        assert cm.dtype == torch.int32 and tuple(cm.shape) == (1, 256, 512)
+        counts.append(kernels.launch_counts())
+    assert not any(counts[0].values())
+    assert all(n > 0 for n in counts[1].values())
 
 
 def test_graph_slope_ms_floored_and_near_graph_ms(cuda_device, gen):
